@@ -1,5 +1,5 @@
 #!/bin/sh
-# NE30 72L f64 DCMIP1-1 12-day chunked verification (VERDICT r2 item 5).
+# NE30 72L f64 DCMIP1-1 12-day chunked verification.
 # qsize=1: the NCL grades tracer 0 only and tracers evolve independently
 # (verified: 12-step NE8 f64 qsize=1 vs qsize=4 tracer-0 max|diff| = 1.1e-15,
 # pure XLA-fusion reassociation).  4x cheaper than the reference's qsize=4.

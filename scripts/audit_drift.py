@@ -1,12 +1,11 @@
 """Per-round conservation gate on the DEFAULT f32 perf path.
 
-Runs the NE8 perf config (35 tracers, 72L, f32, Pallas, audited limiter
-cap — exactly what bench.py exercises) over the full 12-day DCMIP1-1
+Runs the NE8 perf config (35 tracers, 72L, f32, audited limiter cap —
+exactly what bench.py exercises) over the full 12-day DCMIP1-1
 horizon and asserts the per-tracer relative mass drift stays <= 2e-4
 (the f32 path's documented assembly-order roundoff level, VERIFICATION.md
-~9e-5 at r3).  audit_bf16.py gates the rhs_bf16 FLAG; nothing gated the
-default path per round before this (VERDICT r3 weak #5/item 9) — run it
-after perf changes so new knobs can't silently erode conservation.
+~9e-5) — run it after perf changes so new knobs can't silently erode
+conservation.
 
 Reference check: the "Q, Q diss" conservation column (README:38-44).
 """
@@ -16,36 +15,32 @@ import jax, jax.numpy as jnp
 import numpy as np
 from transport_se_tpu.config import perf_config
 from transport_se_tpu.model.core import (build_model, initial_qdp,
-                                         make_subcycle_fn, _tp)
+                                         make_subcycle_fn)
 
 NE = int(os.environ.get("AUDIT_NE", "8"))
 DAYS = float(os.environ.get("AUDIT_DAYS", "12"))
 GATE = 2e-4
 
-cfg = perf_config(NE, dtype="f32", use_pallas=True)
+cfg = perf_config(NE, dtype="f32")
 nsub = int(DAYS * 86400.0 / cfg.tstep) // cfg.rsplit
 m = build_model(cfg)
-E = m.grid.nelem
-qk = cfg.qsize * cfg.nlev
-step = jax.jit(make_subcycle_fn(m, diagnostics=False, io_layout="t"))
-Qdp = _tp(jax.jit(lambda: initial_qdp(m))(), E, qk)
-sp = m.spheremp.reshape(E, 16, 1)
+step = jax.jit(make_subcycle_fn(m, diagnostics=False))
+Qdp = jax.jit(lambda: initial_qdp(m))()
+sp = np.asarray(m.spheremp, np.float64)
 
 
 def mass(Q):
-    return np.asarray((Q * sp).sum(axis=(0, 1)), np.float64) \
-        .reshape(cfg.qsize, cfg.nlev).sum(axis=1)
+    return np.einsum("eqkij,eij->q", np.asarray(Q, np.float64), sp)
 
 
 nstep = jnp.asarray(0, jnp.int32)
-Qw, _, _, _ = step(Qdp, nstep)
-_ = np.asarray(Qw.ravel()[0])
+jax.block_until_ready(step(Qdp, nstep))        # compile
 m0 = mass(Qdp)
 t0 = time.perf_counter()
 Q = Qdp
 for _i in range(nsub):
     Q, ps, nstep, mindp = step(Q, nstep)
-_ = np.asarray(Q.ravel()[0])
+jax.block_until_ready(Q)
 wall = time.perf_counter() - t0
 assert float(mindp) >= 0.0, "health check tripped (negative dp / window)"
 m1 = mass(Q)

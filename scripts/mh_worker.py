@@ -19,7 +19,7 @@ pid, nproc, port, outdir, mode = (int(sys.argv[1]), int(sys.argv[2]),
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")   # env var unreliable off-TPU
+jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 8 // nproc)
 jax.config.update("jax_enable_x64", True)
 
@@ -50,9 +50,9 @@ if mode == "run":
     Qdp = shard_qdp_multihost(runner, Qdp_host)
     nstep = jnp.asarray(0, jnp.int32)
     Qdp, ps, nstep, _ = runner.step(Qdp, nstep)
-    mid = gather_canonical(Qdp, runner.inv_perm)
+    mid = gather_canonical(Qdp)
     Qdp, ps, nstep, _ = runner.step(Qdp, nstep)
-    fin = gather_canonical(Qdp, runner.inv_perm)
+    fin = gather_canonical(Qdp)
     if pid == 0:
         np.save(os.path.join(outdir, "mid.npy"), mid)
         np.save(os.path.join(outdir, "final.npy"), fin)
@@ -60,7 +60,7 @@ elif mode == "resume":
     mid = np.load(os.path.join(outdir, "mid.npy"))
     Qdp = shard_qdp_multihost(runner, mid)
     Qdp, ps, nstep, _ = runner.step(Qdp, jnp.asarray(cfg.rsplit, jnp.int32))
-    fin = gather_canonical(Qdp, runner.inv_perm)
+    fin = gather_canonical(Qdp)
     if pid == 0:
         np.save(os.path.join(outdir, "final2.npy"), fin)
 else:

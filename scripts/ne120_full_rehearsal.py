@@ -8,12 +8,11 @@ the f32 state alone is ~14 GB.  This rehearsal retires the memory-plan
 and shapes-at-scale risk that reduced proxies cannot: the exact
 production shapes, shard plan, halo tables and collectives run end to
 end (one remap interval), with host peak-RSS and per-shard persistent
-state accounting against the 16 GB/chip HBM budget.
+state accounting against one card's device memory.
 
 Phase 2 exercises the banded face-shift sharded DSS (the production
 multi-chip assembly, parallel/face_sharded.py) at the full 86,400-element
-horizontal scale with a reduced vertical/tracer count (the Pallas kernels
-run in interpret mode on CPU — hours at full vertical size; the
+horizontal scale with a reduced vertical/tracer count (the
 horizontal-scale table/plan structure is what phase 2 certifies).
 
 Usage: python scripts/ne120_full_rehearsal.py [--phase 1|2|all]
@@ -38,18 +37,11 @@ def peak_rss_gb():
 
 def _mass_drift(Qdp0, Qdp, sp, qsize, nlev):
     """Per-tracer relative mass drift, shared by run_phase and the
-    chunked phase-1 path (handles both the std 5-D and T 3-D layouts)."""
+    chunked phase-1 path."""
     import numpy as np
-    if Qdp.ndim == 3:          # T layout [E, 16, qk]
-        w = sp.reshape(-1, 16, 1)
-        mass0 = np.asarray((Qdp0 * w).sum(axis=(0, 1)))
-        mass1 = np.asarray((Qdp * w).sum(axis=(0, 1)))
-        mass0 = mass0.reshape(qsize, nlev).sum(axis=1)
-        mass1 = mass1.reshape(qsize, nlev).sum(axis=1)
-    else:                      # std layout [E, q, K, n, n]
-        w = sp[:, None, None]
-        mass0 = np.asarray((Qdp0 * w).sum(axis=(0, 2, 3, 4)))
-        mass1 = np.asarray((Qdp * w).sum(axis=(0, 2, 3, 4)))
+    w = sp[:, None, None]
+    mass0 = np.asarray((Qdp0 * w).sum(axis=(0, 2, 3, 4)))
+    mass1 = np.asarray((Qdp * w).sum(axis=(0, 2, 3, 4)))
     return np.abs(mass1 - mass0) / np.abs(mass0)
 
 
@@ -77,13 +69,13 @@ def run_phase(cfg_kwargs, tag, tol, accounting_only=False):
           f"nrounds={runner.plan.nrounds}, nhalo={runner.plan.nhalo}, "
           f"eloc={runner.plan.eloc}", flush=True)
 
-    # persistent per-shard state accounting (the HBM residents on a real
-    # chip): Qdp + wind/metric/table slices
+    # persistent per-shard state accounting (the device residents on a
+    # card): Qdp + wind/metric/table slices
     bpe = 4 if cfg.dtype == "f32" else 8
     qdp_shard = runner.plan.eloc * 16 * cfg.qsize * cfg.nlev * bpe
     halo_shard = runner.plan.nhalo * 16 * cfg.qsize * cfg.nlev * bpe
     print(f"[{tag}] per-shard Qdp {qdp_shard/1e9:.2f} GB, halo slab "
-          f"{halo_shard/1e9:.2f} GB (16 GB/chip budget)", flush=True)
+          f"{halo_shard/1e9:.2f} GB", flush=True)
 
     t0 = time.time()
     Qdp0 = runner.shard_qdp(jax.jit(lambda: initial_qdp(m))())
@@ -109,7 +101,7 @@ def run_phase(cfg_kwargs, tag, tol, accounting_only=False):
     print(f"[{tag}] 1 remap interval: {wall:.1f}s, host peak RSS "
           f"{peak_rss_gb():.1f} GB", flush=True)
 
-    sp = m.spheremp[jnp.asarray(runner.plan.perm)]
+    sp = m.spheremp
     rel = _mass_drift(Qdp0, Qdp, sp, cfg.qsize, cfg.nlev)
     assert float(min_dp) > 0, "health check failed"
     assert rel.max() < tol, f"mass drift {rel.max()}"
@@ -131,9 +123,9 @@ def run_phase1_chunked(rsplit, qchunk, out_path, tol=1e-5, max_chunks=0):
     Rationale: one full-shape [86400,16,72,35] interval under the 8-way
     time-sliced CPU mesh holds every shard's intermediates on the host
     simultaneously and OOMs at >125 GB (measured 2026-08-20: oom-kill at
-    130 GB anon-rss during the first execution).  On 8 real chips each
-    shard's persistent state is 1.74 GB against 16 GB HBM (accounting
-    log) and no such aggregation exists.  Tracer blocking is also what
+    130 GB anon-rss during the first execution).  On 8 cards each
+    shard's persistent state is 1.74 GB (accounting log) and no such
+    aggregation exists.  Tracer blocking is also what
     the reference GPU path does (cuda_mod tracer blocking).
 
     Coverage note: each chunk re-initializes with qsize=qchunk, so every
@@ -172,7 +164,7 @@ def run_phase1_chunked(rsplit, qchunk, out_path, tol=1e-5, max_chunks=0):
           f"{time.time()-t0:.1f}s, nrounds={runner.plan.nrounds}, "
           f"nhalo={runner.plan.nhalo}, eloc={runner.plan.eloc}",
           flush=True)
-    sp = m.spheremp[jnp.asarray(runner.plan.perm)]
+    sp = m.spheremp
     nchunks = -(-QTOT // qchunk)
     if max_chunks:
         # chunks are bit-identical repeats of the [checkerboard, layer,
@@ -237,13 +229,6 @@ def main():
     p.add_argument("--accounting-only", action="store_true",
                    help="stop after shard-plan + full-size state init + "
                         "per-shard memory accounting (minutes, not hours)")
-    p.add_argument("--pallas", action="store_true",
-                   help="phase 2 with the Pallas T pipeline (interpret "
-                        "mode on CPU: hours per interval; default runs "
-                        "the XLA pipeline through the same banded "
-                        "face-shift sharded DSS, which completes in "
-                        "minutes and certifies the same tables/"
-                        "collectives at full horizontal scale)")
     p.add_argument("--p1-qchunk", type=int, default=0,
                    help="advect the 35 tracers in sequential chunks of "
                         "this size (0 = one 35-wide execution; chunking "
@@ -302,15 +287,13 @@ def main():
                 tag, 1e-5, accounting_only=args.accounting_only))
     if args.phase in ("2", "all"):
         # phase 2: full horizontal scale through the banded face-shift
-        # sharded DSS.  Default: XLA pipeline (std layout dispatching
-        # dss_sum through the band assembly — halo.py dss_sum); --pallas
-        # runs the fused T pipeline instead (interpret-mode kernels on
-        # CPU: hours per interval; same tables, certified bitwise-equal
-        # at small ne by tests/test_sharded_face.py)
+        # sharded DSS (dss_sum through the band assembly — halo.py
+        # dss_sum; certified bitwise-equal at small ne by
+        # tests/test_sharded_face.py)
         results.append(run_phase(
             dict(ne=120, nlev=8, qsize=2, tstep=75.0, vcoord="dcmip8",
                  test_case="dcmip1-2", nu_q=1e13, nmax=3, dtype="f32",
-                 use_pallas=args.pallas, dss_mode="face",
+                 dss_mode="face",
                  elem_order="raster"),
             "face-sharded-8L-2q", 1e-5,
             accounting_only=args.accounting_only))

@@ -4,8 +4,7 @@
 Validates the north-star grid size end to end: grid + shard-plan build at
 86400 elements, one remap interval through the sharded pipeline on 8
 virtual devices, conservation check.  (The f32 NE120 field at 35 tracers
-is ~14 GB — beyond one chip's working set with temporaries, hence the
-sharded path is mandatory at full size; this check runs a reduced
+is ~14 GB; this check runs a reduced
 vertical/tracer count to fit CPU memory while exercising the full
 horizontal scale.)
 
@@ -52,7 +51,7 @@ def main():
     jax.block_until_ready(Qdp)
     print(f"1 remap interval: {time.time()-t0:.1f}s", flush=True)
 
-    sp = m.spheremp[jnp.asarray(runner.plan.perm)]
+    sp = m.spheremp
     mass0 = np.asarray((Qdp0 * sp[:, None, None]).sum(axis=(0, 2, 3, 4)))
     mass1 = np.asarray((Qdp * sp[:, None, None]).sum(axis=(0, 2, 3, 4)))
     rel = np.abs(mass1 - mass0) / np.abs(mass0)

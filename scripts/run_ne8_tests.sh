@@ -5,7 +5,7 @@
 # Linf errors, overshoot and undershoots should agree to 2-3 digits...
 # check tracer mass conserved via 'Q, Q diss'").
 #
-# Usage: scripts/run_ne8_tests.sh [cpu|tpu]   (default cpu, f64)
+# Usage: scripts/run_ne8_tests.sh [cpu|cuda]   (default cpu, f64)
 set -euo pipefail
 cd "$(dirname "$0")/.."
 PLATFORM="${1:-cpu}"

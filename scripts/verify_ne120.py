@@ -1,15 +1,9 @@
 #!/usr/bin/env python
-"""Single-chip NE120 DCMIP1-2 norm check (64L, reduced tracers).
+"""One-GPU NE120 DCMIP1-2 norm check (64L, reduced tracers, f32).
 
-A lean stepping loop (no driver conveniences) so the one-chip HBM budget
-fits: full-size NE120 (35 tracers) is ~14 GB of field and is a sharded
-configuration by construction (see scripts/ne120_sharded_check.py and
-scripts/halo_model.py); this check validates the north-star horizontal
-resolution end-to-end on real TPU hardware against README:148.
-
-Measured (one v5e chip, f32): L1=0.0428 L2=0.1020 Linf=0.2817
-q_max=0.9960 vs published 0.0363/0.0987/0.2775/0.9941 — 2 digits on
-L2/Linf/q_max; L1 sits near the f32 noise floor at this resolution.
+A lean stepping loop (no driver conveniences); validates the north-star horizontal resolution end to end
+against the published norms (README:148: 0.0363/0.0987/0.2775, q_max
+0.9941).  Not yet run on a GPU.
 """
 import gc
 import os
@@ -21,23 +15,22 @@ import jax, jax.numpy as jnp
 import numpy as np
 from transport_se_tpu.config import Config
 from transport_se_tpu.model.core import (build_model, initial_qdp,
-                                         make_subcycle_fn, _tp, _tp_back)
+                                         make_subcycle_fn)
 from transport_se_tpu.norms import dcmip_error_norms, grade_tracer, unique_columns
 from transport_se_tpu.constants import SCALE_HEIGHT
 
 TEST = os.environ.get("NE120_TEST", "dcmip1-2")
 NDAYS = int(os.environ.get("NE120_DAYS", "1"))  # 1-1's period is 12
 cfg = Config(ne=120, nlev=64, qsize=2, tstep=75.0, ndays=NDAYS, nu_q=1e13,
-             test_case=TEST, dtype="f32", use_pallas=True, vcoord="dcmip64",
+             test_case=TEST, dtype="f32", vcoord="dcmip64",
              dss_mode="face", elem_order="raster", disable_diagnostics=True)
 m = build_model(cfg)
-E = m.grid.nelem; qk = cfg.qsize * cfg.nlev
-step = jax.jit(make_subcycle_fn(m, diagnostics=False, io_layout="t"))
+step = jax.jit(make_subcycle_fn(m, diagnostics=False), donate_argnums=0)
 q0_host = None
 
 Qdp = jax.jit(lambda: initial_qdp(m))()
 q0_host = np.asarray(Qdp) / np.asarray(m.dp0col)[None, None, :, None, None]
-state = jax.jit(lambda x: _tp(x, E, qk))(Qdp)
+state = Qdp
 del Qdp; gc.collect()
 
 nstep = jnp.asarray(0, jnp.int32)
@@ -48,7 +41,7 @@ jax.block_until_ready(state)
 print(f"run: {time.time()-t0:.1f}s  min_dp={float(min_dp):.2f}", flush=True)
 assert float(min_dp) > 0
 
-Qdp = np.asarray(jax.jit(lambda x: _tp_back(x, (E, cfg.qsize, cfg.nlev, 4, 4)))(state))
+Qdp = np.asarray(state)
 dp_ref = ((np.asarray(m.hyai[1:]) - np.asarray(m.hyai[:-1]))[None, :, None, None] * 1e5
           + (np.asarray(m.hybi[1:]) - np.asarray(m.hybi[:-1]))[None, :, None, None]
           * np.asarray(ps_v)[:, None])

@@ -81,47 +81,27 @@ def test_raster_grid_equivalence():
                                rtol=1e-15)
 
 
-def test_neighbor_minmax_pallas_row_blocks(grids, monkeypatch):
-    """The Pallas neighbor-minmax kernel with by < ne (several row blocks
-    per face) must match the XLA face version across block boundaries
-    (rows above/below come from clamped specs + seam strips)."""
-    from transport_se_tpu.ops import pallas_dss
-    from transport_se_tpu.ops.dss_face import neighbor_minmax_face
+def test_face_dss_is_linear(grids):
+    """DSS(a x + b y) == a DSS(x) + b DSS(y) for the face assembly."""
     g, tg, tf = grids
-    if g.ne < 4:
-        pytest.skip("needs ne >= 4 for nr > 1")
-    monkeypatch.setattr(pallas_dss, "DSS_BLOCK_CAP", 100000)
-    rng = np.random.default_rng(5)
-    qmin = jnp.asarray(rng.uniform(-1, 1, (g.nelem, 7)))
-    qmax = jnp.asarray(rng.uniform(-1, 1, (g.nelem, 7)))
-    assert pallas_dss._pick_by(g.ne, 128) < g.ne
-    a_min, a_max = pallas_dss.neighbor_minmax_pallas(qmin, qmax, tf.face)
-    b_min, b_max = neighbor_minmax_face(qmin, qmax, tf.face)
-    np.testing.assert_array_equal(np.asarray(a_min), np.asarray(b_min))
-    np.testing.assert_array_equal(np.asarray(a_max), np.asarray(b_max))
+    rng = np.random.default_rng(9)
+    x = jnp.asarray(rng.standard_normal((g.nelem, 16, 5)))
+    y = jnp.asarray(rng.standard_normal((g.nelem, 16, 5)))
+    lhs = tf.dss_sum_t(2.5 * x - 0.75 * y)
+    rhs = 2.5 * tf.dss_sum_t(x) - 0.75 * tf.dss_sum_t(y)
+    np.testing.assert_allclose(np.asarray(lhs), np.asarray(rhs),
+                               rtol=0, atol=1e-13)
 
 
-def test_dss_scale_minmax_avg_epilogue(grids):
-    """The combined qdp_time_avg + bound-prep epilogue must equal the
-    unfused sequence: scale -> (avg + 2x)/3 -> min/max of out/dp (the
-    cross-step bound chain gives these bounds to the next tracer step's
-    stage 0, whose dp is the static dp0)."""
+def test_face_projection_is_idempotent(grids):
+    """rspheremp * DSS(spheremp * x) (make_C0) is a projection: applying
+    it twice changes nothing beyond roundoff."""
+    from transport_se_tpu.ops.dss import dss_scale
     g, tg, tf = grids
-    rng = np.random.default_rng(7)
-    E = g.nelem
-    nq, nk = 2, 8
-    x = jnp.asarray(rng.uniform(0.5, 2.0, (E, 16, nq * nk)))
-    avg = jnp.asarray(rng.uniform(0.5, 2.0, (E, 16, nq * nk)))
-    dp = jnp.asarray(rng.uniform(0.5, 2.0, (E, 16, nk)))
-    rsp = jnp.asarray(rng.uniform(0.5, 2.0, (E, 16)))
-    out, qmn, qmx, _ = tf.dss_scale_minmax_t(x, rsp, dp, nq, avg=avg)
-    want = (avg + 2.0 * (tf.dss_sum_t(x) * rsp[:, :, None])) / 3.0
-    np.testing.assert_allclose(np.asarray(out), np.asarray(want),
-                               rtol=1e-13, atol=1e-13)
-    q = np.asarray(want).reshape(E, 16, nq, nk) / np.asarray(dp)[:, :, None]
-    np.testing.assert_allclose(np.asarray(qmn),
-                               q.min(axis=1).reshape(E, -1),
-                               rtol=1e-13, atol=0)
-    np.testing.assert_allclose(np.asarray(qmx),
-                               q.max(axis=1).reshape(E, -1),
-                               rtol=1e-13, atol=0)
+    rng = np.random.default_rng(13)
+    x = jnp.asarray(rng.standard_normal((g.nelem, 3, 4, 4)))
+    sp, rsp = jnp.asarray(g.spheremp), jnp.asarray(g.rspheremp)
+    once = dss_scale(x, sp, rsp, tf)
+    twice = dss_scale(once, sp, rsp, tf)
+    np.testing.assert_allclose(np.asarray(twice), np.asarray(once),
+                               rtol=0, atol=1e-13)

@@ -147,3 +147,51 @@ def test_dss_segsum_matches_gather():
     np.testing.assert_array_equal(at, np.asarray(
         jnp.moveaxis(jnp.asarray(a).reshape(E, 5, 16), -1, 1)))
     np.testing.assert_allclose(bt, want_t, rtol=1e-14, atol=1e-15)
+
+
+def _dot_precisions(fn, *args):
+    """Precision of every dot_general in fn's jaxpr (nested jaxprs too)."""
+    import jax
+    from jax.extend import core as jex_core
+
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                yield eqn.params["precision"]
+            for v in eqn.params.values():
+                if isinstance(v, jex_core.ClosedJaxpr):
+                    yield from walk(v.jaxpr)
+                elif isinstance(v, jex_core.Jaxpr):
+                    yield from walk(v)
+
+    return list(walk(jax.make_jaxpr(fn)(*args).jaxpr))
+
+
+@pytest.mark.parametrize("op", ["gradient", "divergence", "divergence_wk",
+                                "laplace", "vorticity"])
+def test_contractions_ask_for_highest_precision(G, op):
+    """Every 4x4 contraction asks for HIGHEST precision, so a GPU never
+    runs the float32 operators in TF32 (about three decimal digits)."""
+    import jax
+    m = _metric(G)
+    E = G.nelem
+    s = jnp.ones((E, 2, 4, 4), jnp.float32)
+    v = jnp.ones((E, 2, 2, 4, 4), jnp.float32)
+    d = {k: x.astype(jnp.float32) for k, x in m.items()}
+    fn, arg = {
+        "gradient": (lambda a: so.gradient_sphere(a, d["deriv"], d["Dinv"]),
+                     s),
+        "divergence": (lambda a: so.divergence_sphere(
+            a, d["deriv"], d["Dinv"], d["metdet"], d["rmetdet"]), v),
+        "divergence_wk": (lambda a: so.divergence_sphere_wk(
+            a, d["deriv"], d["Dinv"], d["spheremp"]), v),
+        "laplace": (lambda a: so.laplace_sphere_wk(
+            a, d["deriv"], d["Dinv"], d["spheremp"]), s),
+        "vorticity": (lambda a: so.vorticity_sphere(
+            a, d["deriv"], d["D"], d["rmetdet"]), v),
+    }[op]
+    precs = _dot_precisions(fn, arg)
+    assert precs, "no contraction found"
+    hi = jax.lax.Precision.HIGHEST
+    for p in precs:
+        assert p is not None and all(x == hi for x in p), p

@@ -207,15 +207,3 @@ def test_fast_matches_general_down2():
     gen = remap_q_ppm_general(q, d1, d2)
     np.testing.assert_allclose(np.asarray(fast), np.asarray(gen),
                                rtol=1e-12, atol=1e-13)
-    # and the Pallas kernel agrees too (interpret mode)
-    from transport_se_tpu.ops.pallas_ppm import remap_q_ppm_pallas_t
-    qt = jnp.moveaxis(q.reshape(4, 1, 3 * nlev), 1, 1)  # fake T layout
-    Qt = q.reshape(4, 1, 3 * nlev)
-    Qt16 = jnp.broadcast_to(Qt, (4, 16, 3 * nlev))
-    d1t = jnp.broadcast_to(d1[:, None], (4, 16, nlev))
-    d2t = jnp.broadcast_to(d2[:, None], (4, 16, nlev))
-    pal = remap_q_ppm_pallas_t(Qt16, d1t, d2t, interpret=True)
-    ref = remap_q_ppm(Qt16.reshape(4, 16, 3, nlev), d1t, d2t)
-    np.testing.assert_allclose(np.asarray(pal),
-                               np.asarray(ref.reshape(4, 16, 3 * nlev)),
-                               rtol=1e-10, atol=1e-11)

@@ -77,33 +77,3 @@ def test_sharded_multi_step_invariance(M):
         Qs, _, ns, _ = runner.step(Qs, ns)
     diff = np.abs(np.asarray(Qs) - np.asarray(Qr)).max()
     assert diff < 1e-12 * float(jnp.abs(Qr).max())
-
-
-def test_sharded_pallas_t_pipeline():
-    """use_pallas T-layout pipeline inside shard_map == single-device
-    T-layout pipeline (interpret-mode kernels on the CPU mesh)."""
-    import dataclasses
-    import jax
-    import jax.numpy as jnp
-    from transport_se_tpu.config import Config
-    from transport_se_tpu.model.core import (build_model, initial_qdp,
-                                             make_subcycle_fn)
-    from transport_se_tpu.parallel.sharded import (make_mesh,
-                                                   make_sharded_subcycle)
-
-    cfg = Config(ne=2, nlev=8, qsize=2, tstep=1200.0, vcoord="dcmip8",
-                 test_case="dcmip1-1", nu_q=6e16, nmax=3, dtype="f64",
-                 use_pallas=True)
-    m = build_model(cfg)
-    Qdp = initial_qdp(m)
-    single, *_ = jax.jit(make_subcycle_fn(m))(Qdp, jnp.asarray(0, jnp.int32))
-
-    mesh = make_mesh(jax.devices()[:4])
-    runner = make_sharded_subcycle(m, mesh)
-    assert runner.plan.nbound > 0   # overlap ordering active
-    Qs = runner.shard_qdp(Qdp)
-    sharded, ps, _, min_dp = runner.step(Qs, jnp.asarray(0, jnp.int32))
-    np.testing.assert_allclose(runner.to_model_order(sharded),
-                               np.asarray(single),
-                               rtol=1e-12, atol=1e-13)
-    assert float(min_dp) > 0

@@ -64,66 +64,43 @@ def test_band_dss_bitwise_vs_global_face(ne, S):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("ne,S", [(1, 6), (4, 8), (6, 8)])
-def test_band_pallas_kernel_bitwise(ne, S):
-    """ops/pallas_band.py dss_band_pallas == the XLA band assembly, slot
-    for slot, per shard (ext built host-side from halo_gid — no shard_map
-    needed), including the fused scale+minmax+lap epilogues."""
-    if ne == 1:
-        ne, S = 6, 1
-    from transport_se_tpu.ops.pallas_band import dss_band_pallas
-    from transport_se_tpu.ops.pallas_euler import laplace_wk_t
+@pytest.mark.parametrize("ne,S", [(6, 1), (4, 8), (6, 8)])
+def test_sharded_neighbor_minmax_matches_single(ne, S):
+    """ShardedDssTables.neighbor_minmax (halo-extended per-element bounds)
+    == the single-device face tables' neighbor_minmax, exactly (min and
+    max do not round)."""
+    from transport_se_tpu.ops.dss import DssTables
 
     grid = build_grid(ne, order="raster")
     E = grid.nelem
-    nq, nk = 2, 8
-    B = nq * nk
     rng = np.random.default_rng(ne * 17 + S)
-    x = jnp.asarray(rng.standard_normal((E, 16, B)))
-    dp_all = jnp.asarray(rng.uniform(0.5, 2.0, (E, 16, nk)))
-    ft = build_face_tables(grid)
+    qmin = jnp.asarray(rng.standard_normal((E, 2, 5)))
+    qmax = qmin + jnp.asarray(rng.uniform(0.0, 1.0, (E, 2, 5)))
+    want = DssTables.from_grid(grid, mode="face").neighbor_minmax(qmin,
+                                                                 qmax)
     plan = build_shard_plan(grid, S)
-    ftabs = build_sharded_face_tables(grid, plan, ft)
-    dims = ftabs.pop("_dims")
-    want_raw = np.asarray(dss_sum_t_face(x, ft))
-    rsp = jnp.asarray(grid.rspheremp).reshape(E, 16)
-    want_scaled = np.asarray(want_raw * np.asarray(rsp)[:, :, None])
-    eloc = plan.eloc
-    for s in range(S):
-        face = tables_from_stack(
-            {k: jnp.asarray(v[s]) for k, v in ftabs.items()}, dims)
-        xs = x[s * eloc:(s + 1) * eloc]
-        hg = plan.halo_gid[s]
-        halo = jnp.where(jnp.asarray(hg >= 0)[:, None, None],
-                         x[jnp.asarray(np.maximum(hg, 0))], 0.0)
-        ext = jnp.concatenate([xs, halo], axis=0)
-        # raw assembly, no epilogues
-        got = np.asarray(dss_band_pallas(xs, ext, face))
-        np.testing.assert_array_equal(
-            got, want_raw[s * eloc:(s + 1) * eloc])
-        # fused scale + minmax + lap epilogues
-        dps = dp_all[s * eloc:(s + 1) * eloc]
-        out, qmn, qmx, lap = dss_band_pallas(
-            xs, ext, face, rsp_band=face.band_rsp, dp=dps, nq=nq,
-            met_band=face.band_met, deriv=grid.deriv)
-        sl = slice(s * eloc, (s + 1) * eloc)
-        np.testing.assert_array_equal(np.asarray(out), want_scaled[sl])
-        q = want_scaled[sl].reshape(eloc, 16, nq, nk) \
-            / np.asarray(dps)[:, :, None, :]
-        np.testing.assert_array_equal(np.asarray(qmn),
-                                      q.min(axis=1).reshape(eloc, B))
-        np.testing.assert_array_equal(np.asarray(qmx),
-                                      q.max(axis=1).reshape(eloc, B))
-        # fused laplacian == the standalone Pallas laplacian kernel
-        # (lane order is (tracer, level) level-minor: tile, not repeat)
-        dp_lane = jnp.concatenate([dps] * nq, axis=2)
-        arrays = dict(Dinv=jnp.asarray(grid.Dinv)[sl],
-                      spheremp=jnp.asarray(grid.spheremp)[sl],
-                      deriv=grid.deriv)
-        want_lap = laplace_wk_t(jnp.asarray(want_scaled[sl]) / dp_lane,
-                                arrays)
-        np.testing.assert_allclose(np.asarray(lap), np.asarray(want_lap),
-                                   rtol=1e-12, atol=1e-12)
+    tabs = dict(send_elem=jnp.asarray(plan.send_elem),
+                send_mask=jnp.asarray(plan.send_mask),
+                recv_slot=jnp.asarray(plan.recv_slot),
+                recv_mask=jnp.asarray(plan.recv_mask),
+                part_idx=jnp.asarray(plan.part_idx),
+                part_mask=jnp.asarray(plan.part_mask),
+                nbr=jnp.asarray(plan.nbr))
+    mesh = make_mesh(jax.devices()[:S])
+
+    def body(a, b, t):
+        tables = ShardedDssTables(
+            axis_name="e", eloc=plan.eloc, nhalo=plan.nhalo,
+            perms=plan.perms, **{k: v[0] for k, v in t.items()})
+        return tables.neighbor_minmax(a, b)
+
+    fn = jax.jit(jax.shard_map(
+        body, mesh=mesh,
+        in_specs=(P("e"), P("e"), {k: P("e") for k in tabs}),
+        out_specs=(P("e"), P("e")), check_vma=False))
+    got = fn(qmin, qmax, tabs)
+    for g_, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g_), np.asarray(w))
 
 
 @pytest.mark.parametrize("ne,S", [(4, 4), (6, 8)])
@@ -131,32 +108,25 @@ def test_sharded_face_pipeline_matches_single(ne, S):
     """Full subcycle with dss_mode='face' under shard_map == single-device
     face pipeline.  ne=4/S=4 is row-aligned (eloc=24); ne=6/S=8 cuts
     shards mid-row (eloc=27) so the integrated path inherits the band
-    unit test's hardest alignment (VERDICT r3 item 7)."""
+    unit test's hardest alignment."""
     from transport_se_tpu.model.core import (build_model, initial_qdp,
-                                             make_subcycle_fn, _tp)
+                                             make_subcycle_fn)
     from transport_se_tpu.parallel.sharded import make_sharded_subcycle
 
     cfg = Config(ne=ne, nlev=8, qsize=2, tstep=1200.0, vcoord="dcmip8",
                  test_case="dcmip1-1", nu_q=6e16, nmax=3, dtype="f64",
-                 use_pallas=True, dss_mode="face", elem_order="raster")
+                 dss_mode="face", elem_order="raster")
     m = build_model(cfg)
     Qdp = initial_qdp(m)
     single, *_ = jax.jit(make_subcycle_fn(m))(Qdp,
                                               jnp.asarray(0, jnp.int32))
 
     mesh = make_mesh(jax.devices()[:S])
-    # overlap=True FORCES the face+overlap composition (toy shards fall
-    # over the auto heuristic's 50% boundary-group threshold): the halo
-    # payload comes from the duplicate boundary-group kernel, so this
-    # test also certifies that duplicate is bitwise-consistent
-    runner = make_sharded_subcycle(m, mesh, overlap=True)
-    assert runner.plan.nbound == 0      # no overlap reordering: raster
+    runner = make_sharded_subcycle(m, mesh)
     assert runner.plan.halo_gid is not None
-    nbv = runner.plan.bmask.sum(axis=1)
-    assert 0 < nbv.min() and nbv.max() < runner.plan.eloc
     Qs = runner.shard_qdp(Qdp)
     sharded, ps, _, min_dp = runner.step(Qs, jnp.asarray(0, jnp.int32))
-    np.testing.assert_allclose(runner.to_model_order(sharded),
+    np.testing.assert_allclose(np.asarray(sharded),
                                np.asarray(single),
                                rtol=1e-12, atol=1e-13)
     assert float(min_dp) > 0
@@ -166,8 +136,8 @@ def test_sharded_std_layout_dss_sum_face_bitwise():
     """ShardedDssTables.dss_sum (std layout [E, B.., 4, 4]) dispatches
     through the banded face assembly when face tables are present
     (halo.py dss_sum) — bitwise vs the single-device face DSS.  This is
-    the path the XLA (use_pallas=False) sharded pipeline takes, e.g. the
-    NE120 phase-2 rehearsal."""
+    the path the sharded pipeline takes, e.g. the NE120 phase-2
+    rehearsal."""
     ne, S = 6, 8
     grid = build_grid(ne, order="raster")
     E = grid.nelem

@@ -1,6 +1,6 @@
-"""transport_se_tpu: TPU-native spectral-element tracer transport.
+"""transport_se_tpu: spectral-element tracer transport in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation with the capabilities of the
+A from-scratch JAX/XLA implementation with the capabilities of the
 E3SM transport_se mini-app (HOMME spectral-element tracer-advection path):
 cubed-sphere GLL grid, RK-SSP3 horizontal advection of tracer mass with the
 optimization-based monotone limiter, biharmonic hyperviscosity, and

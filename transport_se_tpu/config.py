@@ -41,49 +41,40 @@ class Config:
     hypervis_subcycle_q: int = 1
     vert_remap_q_alg: int = 0     # 0: mirror-ghost PPM (reference default)
     ppm_search: str = "fast"      # fast: bounded +-2-cell interface search
-                                  # (TPU shift-select; the run ABORTS via
+                                  # (shift-select; the run ABORTS via
                                   # the ppm_fast_margin health check if the
                                   # Lagrangian grid deforms past the
                                   # window) | general: unbounded counting
                                   # search matching the reference's walking
                                   # loop (prim_advection_mod.F90:159-173) —
-                                  # handles any deformation at a measured
-                                  # cost (XLA path, no Pallas kernel); the
-                                  # margin guard is then advisory only
+                                  # handles any deformation at a higher
+                                  # cost; the margin guard is then
+                                  # advisory only
 
     # vertical coordinate (namelist vfile_mid/vfile_int)
     vcoord: str = "acme72"        # acme72 | dcmip64 | path prefix
 
     # numerics
-    dtype: str = "f64"            # f64 (verification) | f32 (TPU perf)
-    use_pallas: bool = False      # Pallas TPU kernels for the hot ops
-                                  # (limiter); CPU/interpret fallback off
-    pallas_eb: int = 8            # elements per fused-kernel invocation
-                                  # (multiples of 8: Mosaic 2D-block rule)
+    dtype: str = "f64"            # f64 (verification) | f32 (perf)
     limiter_chunks: int = 0       # XLA-limiter convergence groups (0 =
                                   # auto: decoupled per-tracer-batch loops
                                   # on the f64 verification path; see
                                   # ops/limiter.py)
-    rhs_bf16: bool = False        # advection-divergence matmuls at bf16
-                                  # (1-pass MXU) with f32 limiter state —
-                                  # perf knob, audited by
-                                  # scripts/audit_bf16.py; v3 kernel only
-    limiter_iter_cap: int = 0     # fused-kernel limiter iteration cap
-                                  # (0 = the reference's np*np-1 = 15,
+    limiter_iter_cap: int = 0     # limiter iteration cap (0 = the
+                                  # reference's np*np-1 = 15,
                                   # prim_advection_mod.F90:1009).  A cap
                                   # is mass-preserving (every loop exit
                                   # redistributes the clip residual); the
                                   # cost is a roundoff-scale bound
                                   # overshoot on columns that have not
                                   # yet converged — audited by
-                                  # scripts/audit_limcap.py.  f32 Pallas
-                                  # path only; the f64 verification
-                                  # limiter always iterates to
-                                  # convergence.
+                                  # scripts/audit_limcap.py.  f32 only;
+                                  # the f64 verification limiter always
+                                  # iterates to convergence.
     dss_mode: str = "gather"      # gather (BFB partner order) | segsum
                                   # (scatter-add, roundoff reassociation) |
-                                  # face (shifted-slice assembly, fastest;
-                                  #  requires elem_order="raster")
+                                  # face (shifted-slice assembly; requires
+                                  #  elem_order="raster")
     elem_order: str = "gilbert"   # element storage order (see build_grid)
 
     # diagnostics
@@ -181,5 +172,6 @@ def perf_config(ne: int, **kw) -> Config:
         # from the published f64 digits); cap 3 and below widen q_min —
         # rejected.  Mass is preserved at any cap by construction.
         kw.setdefault("limiter_iter_cap", 4)
-    return Config(ne=ne, test_case="dcmip1-1", tstep=tstep, qsize=35,
-                  nu_q=nu, disable_diagnostics=True, **kw)
+    kw.setdefault("qsize", 35)
+    return Config(ne=ne, test_case="dcmip1-1", tstep=tstep, nu_q=nu,
+                  disable_diagnostics=True, **kw)

@@ -1,12 +1,12 @@
 """Equiangular cubed-sphere grid, SE metric terms, and DSS assembly tables.
 
-TPU-native re-design of the reference grid stack (reference:
+Array-first re-design of the reference grid stack (reference:
 src/share/cube_mod.F90 `CubeTopology`/`cube_init_atomic`/`metric_atomic`,
 src/share/mass_matrix_mod.F90 `mass_matrix`, src/share/dof_mod.F90
 `global_dof`/`CreateUniqueIndex`).  Everything is host-side numpy, batched
 over elements as flat arrays [E, np, np, ...] — no element objects.
 
-Design differences from the reference (intentional, TPU-first):
+Design differences from the reference (intentional, array-first):
 
 * Inter-element connectivity is NOT described by edge pack/unpack buffers and
   communication schedules.  Instead we build, once, a *partner table*: for

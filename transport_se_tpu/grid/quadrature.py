@@ -1,6 +1,6 @@
 """Gauss-Lobatto-Legendre quadrature and the GLL derivative matrix.
 
-TPU-native equivalent of the reference quadrature/derivative setup
+Equivalent of the reference quadrature/derivative setup
 (reference: src/share/quadrature_mod.F90:284 `gausslobatto`,
 src/share/derivative_mod.F90:116 `derivinit`).  Everything here is host-side
 numpy, computed in extended precision (longdouble) and truncated to float64,

@@ -8,7 +8,7 @@ points (dof_mod.F90:125 `UniquePoints`) into an `ncol` dimension so shared
 points are written exactly once; we do the same via the grid's precomputed
 unique-point owner table (grid.uniq_src / grid.col_of_gid).
 
-TPU-first design: output is a host-side concern — fields are fetched from
+Design: output is a host-side concern — fields are fetched from
 device once per output interval (one device->host transfer of the already
 final Q/ps arrays), then scattered to ncol order with one numpy gather.  No
 io-processor subsetting / box rearranging (PIO's job on 2015 clusters) is

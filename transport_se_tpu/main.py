@@ -23,7 +23,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("namelist", nargs="?", default=None,
                    help="namelist file (default: stdin)")
-    p.add_argument("--platform", default=None, help="cpu|tpu")
+    p.add_argument("--platform", default=None, help="cpu|cuda")
     p.add_argument("--dtype", default="f64", choices=["f64", "f32"])
     p.add_argument("--quiet", action="store_true")
     args = p.parse_args(argv)
@@ -35,6 +35,8 @@ def main(argv=None):
         jax.config.update("jax_platforms", args.platform)
     if args.dtype == "f64":
         jax.config.update("jax_enable_x64", True)
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from .io.namelist import config_from_namelist
     from .io.history import HistoryWriter

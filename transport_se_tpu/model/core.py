@@ -40,10 +40,8 @@ Semantics replicated exactly (they affect published norms):
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 from typing import Any, Optional
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -208,7 +206,7 @@ def euler_step(m: Model, Qdp_n0, qmin, qmax, divdp, divdp_proj, vn0,
                            if batch % c == 0 and batch // c >= 256), 1)
         Qt_flat, qmin, qmax = limiter_optim_iter_full(
             Qtens.reshape(flat), sp_flat, qmin, qmax, dps_flat,
-            chunks=chunks)
+            chunks=chunks, max_iter=cfg.limiter_iter_cap)
         Qtens = Qt_flat.reshape(shp)
     else:
         # limiter_option 0 / 4: the reference's CPU euler_step applies NO
@@ -222,291 +220,6 @@ def euler_step(m: Model, Qdp_n0, qmin, qmax, divdp, divdp_proj, vn0,
     dssvar_out = _dss_scale(m, dssvar) if dssvar is not None else None
     return Qdp_np1, qmin, qmax, dssvar_out
 
-
-# ---------------------------------------------------------------------------
-# T-layout pipeline (use_pallas): point axis in sublanes, (q,k) in lanes.
-# The whole subcycle runs in [E, 16, q*k] so nothing relayouts between the
-# Pallas kernels, the DSS, and the PPM remap (whose column axis k is the
-# lane minor in this layout).
-# ---------------------------------------------------------------------------
-
-def _tp(x, E, inner):
-    """[E, ..., 4, 4] with `inner` batch -> [E, 16, inner]."""
-    return jnp.moveaxis(x.reshape(E, inner, 16), -1, 1)
-
-
-def _tp_back(x_t, shape):
-    """[E, 16, inner] -> original [E, ..., 4, 4] shape."""
-    return jnp.moveaxis(x_t, 1, -1).reshape(shape)
-
-
-def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t,
-                 dt, rhs_multiplier: int, pre_minmax=None, next_dp=None,
-                 next_lap=False, pre_lap=None, avg_t=None):
-    """euler_step in T layout.  Qt [E,16,L]; divdp/uv [E,16,k];
-    qmin/qmax [E,1,L].  L is qk = qsize*nlev, possibly 128-padded
-    (lane padding carries zeros end to end so the Pallas DSS needs no
-    pad/unpad round trips).
-
-    pre_minmax: this stage's per-element bound prep, if the previous
-    stage's fused DSS epilogue already produced it.  next_dp [E,16,k]:
-    compute the NEXT stage's bound prep in this stage's DSS epilogue.
-    Returns (Qt', qmin', qmax', next_minmax-or-None)."""
-    cfg = m.cfg
-    E, _, L = Qt.shape
-    nq = cfg.qsize
-    nk = cfg.nlev
-    qk = nq * nk
-
-    def pad_l(x):
-        """[E, qk] -> [E, L] (bounds stay 2D: a [E,1,L] array would
-        tile-pad the unit sublane 8x in HBM)."""
-        return x if L == qk else jnp.pad(x, ((0, 0), (0, L - qk)))
-    arrays = dict(Dinv=m.Dinv, metdet=m.metdet, rmetdet=m.rmetdet,
-                  spheremp=m.spheremp, deriv=m.grid.deriv)
-
-    dp0_t = jnp.broadcast_to(m.dp0col[None, None, :], (E, 16, nk))
-    dp_t = dp0_t - rhs_multiplier * dt * divdp_proj_t        # [E,16,k]
-    rsp16 = m.rspheremp.reshape(E, 16)
-
-    if pre_minmax is None:
-        qmin_l, qmax_l = m.tables.minmax_prep(Qt, dp_t, nq)  # [E, qk]
-    else:
-        qmin_l, qmax_l = pre_minmax
-    qmin_l = pad_l(qmin_l[:, :qk])                           # [E, L]
-    qmax_l = pad_l(qmax_l[:, :qk])
-
-    def nbr_minmax(a_min, a_max):
-        gmin, gmax = m.tables.neighbor_minmax(
-            a_min[:, :qk].reshape(E, nq, nk),
-            a_max[:, :qk].reshape(E, nq, nk))
-        return (pad_l(gmin.reshape(E, qk)),
-                pad_l(gmax.reshape(E, qk)))
-
-    rhs_viss = 0
-    bih_t = None
-    bih_mode = 0
-    nu_coef = 0.0
-    if rhs_multiplier == 0:
-        qmin, qmax = nbr_minmax(qmin_l, qmax_l)
-    elif rhs_multiplier == 1:
-        qmin = jnp.minimum(qmin, qmin_l)
-        qmax = jnp.maximum(qmax, qmax_l)
-    else:
-        rhs_viss = 3
-        qmin, qmax = nbr_minmax(qmin_l, qmax_l)
-        if cfg.nu_q > 0:
-            # biharmonic: laplace -> DSS -> rspheremp here; the second
-            # Laplacian + tendency run inside the fused kernel (mode 2).
-            # When the previous stage's DSS epilogue already produced the
-            # first Laplacian (pre_lap), skip its standalone kernel.
-            bih_mode = 2
-            nu_coef = float(-rhs_viss * dt * cfg.nu_q)
-            if pre_lap is not None:
-                bih_t = m.tables.dss_scale_t(pre_lap, rsp16)
-            else:
-                from ..ops.pallas_euler import laplace_wk_t
-                dp_rep = jnp.broadcast_to(dp_t[:, :, None, :],
-                                          (E, 16, nq, nk)).reshape(E, 16,
-                                                                   qk)
-                if L != qk:
-                    dp_rep = jnp.concatenate(
-                        [dp_rep, jnp.ones((E, 16, L - qk), Qt.dtype)],
-                        axis=-1)
-                Q_t = Qt / dp_rep
-                bih_t = m.tables.dss_scale_t(laplace_wk_t(Q_t, arrays),
-                                             rsp16)
-
-    from ..ops.pallas_euler import fused_advect_limit
-    rsph = m.rspheremp.reshape(E, 16, 1)
-    nb = getattr(m.tables, "nbound", 0)
-    if 0 < nb < E:
-        # boundary/interior split (overlap element ordering): the halo
-        # permutes depend only on the boundary kernel call, so XLA can
-        # run them while the interior kernel computes
-        u_t, v_t = uv_t
-
-        def run(sl):
-            a_sl = dict(arrays, **{k: arrays[k][sl] for k in
-                                   ("Dinv", "metdet", "rmetdet",
-                                    "spheremp")})
-            return fused_advect_limit(
-                Qt[sl], (u_t[sl], v_t[sl]), dp_t[sl], divdp_t[sl],
-                qmin[sl], qmax[sl], a_sl, float(dt), rhs_viss=rhs_viss,
-                bih=None if bih_t is None else bih_t[sl],
-                bih_mode=bih_mode, nu_coef=nu_coef, dp0=m.dp0ref,
-                transposed=True, nq=nq, eb=cfg.pallas_eb,
-                rhs_bf16=cfg.rhs_bf16, max_iter=cfg.limiter_iter_cap)
-
-        out_b, qmin_b, qmax_b = run(slice(0, nb))
-        out_i, qmin_i, qmax_i = run(slice(nb, None))
-        qmin = jnp.concatenate([qmin_b, qmin_i], axis=0)
-        qmax = jnp.concatenate([qmax_b, qmax_i], axis=0)
-        # overlap path: next-stage bound prep stays unfused (the caller
-        # falls back to minmax_prep when it receives None)
-        res = m.tables.dss_sum_t_split(out_b, out_i) * rsph
-        if avg_t is not None:
-            res = (avg_t + 2.0 * res) / 3.0
-        return res, qmin, qmax, None
-
-    out_t, qmin, qmax = fused_advect_limit(
-        Qt, uv_t, dp_t, divdp_t, qmin, qmax, arrays, float(dt),
-        rhs_viss=rhs_viss, bih=bih_t, bih_mode=bih_mode, nu_coef=nu_coef,
-        dp0=m.dp0ref, transposed=True, nq=nq, eb=cfg.pallas_eb,
-        rhs_bf16=cfg.rhs_bf16, max_iter=cfg.limiter_iter_cap)
-    dss_kw = {}
-    if getattr(m.tables, "overlap_face", False):
-        # face+overlap composition (cuda_mod.F90:932-1009 boundary/
-        # interior overlap, raster order kept): re-run the producer on
-        # just the boundary group (the elements any peer needs) as the
-        # halo-permute payload, so XLA schedules the permutes while the
-        # full-field kernel computes.  The fused kernel's per-element
-        # results are grouping-invariant (the clip-residual limiter
-        # stabilizes one iteration after per-column convergence), so the
-        # duplicate is bitwise equal to out_t[bidx] and the band assembly
-        # is unchanged (tested: tests/test_sharded_face.py).
-        bsel = m.tables.bidx
-        u_t, v_t = uv_t
-        xb, _, _ = fused_advect_limit(
-            Qt[bsel], (u_t[bsel], v_t[bsel]), dp_t[bsel], divdp_t[bsel],
-            qmin[bsel], qmax[bsel],
-            dict(arrays, **{k: arrays[k][bsel] for k in
-                            ("Dinv", "metdet", "rmetdet", "spheremp")}),
-            float(dt), rhs_viss=rhs_viss,
-            bih=None if bih_t is None else bih_t[bsel],
-            bih_mode=bih_mode, nu_coef=nu_coef, dp0=m.dp0ref,
-            transposed=True, nq=nq, eb=cfg.pallas_eb,
-            rhs_bf16=cfg.rhs_bf16, max_iter=cfg.limiter_iter_cap)
-        dss_kw["xb"] = xb
-    if next_dp is not None:
-        Qt_new, nmn, nmx, lapo = m.tables.dss_scale_minmax_t(
-            out_t, rsp16, next_dp, nq,
-            lap_arrays=arrays if next_lap else None, avg=avg_t, **dss_kw)
-        return Qt_new, qmin, qmax, ((nmn, nmx), lapo)
-    Qt_new = m.tables.dss_scale_t(out_t, rsp16, avg=avg_t, **dss_kw)
-    return Qt_new, qmin, qmax, None
-
-
-def advect_rk2_t_parts(m: Model, Qt, uv_t, divdp_t, divdp_proj_t, dt_q,
-                       pre_minmax0=None, next_step_dp=None):
-    """T-layout RK2 advection from precomputed wind parts (uv_t = the
-    mean-flux (u*dp, v*dp) pair, each [E,16,k]).
-
-    Each stage's DSS epilogue also computes the NEXT stage's limiter
-    bound prep (min/max of Qdp'/dp_next over the element points) — the
-    fused kernel path saves a full read of the field per stage.
-
-    pre_minmax0: stage 0's bound prep if the PREVIOUS tracer step's
-    stage-3 epilogue already produced it (its dp is the static dp0, so
-    the bounds chain across steps).  next_step_dp: request that epilogue
-    output here, for the next step in the subcycle.  Returns
-    (Qt', divdp_proj_t, next_minmax-or-None)."""
-    E = Qt.shape[0]
-    nk = m.cfg.nlev
-    dt2 = dt_q / 2.0
-    dp0_t = jnp.broadcast_to(m.dp0col[None, None, :], (E, 16, nk))
-    dp1_t = dp0_t - 1.0 * dt2 * divdp_proj_t
-    dp2_t = dp0_t - 2.0 * dt2 * divdp_proj_t
-    zmin = jnp.zeros((E, Qt.shape[2]), Qt.dtype)
-    Qt1, qmin, qmax, nb1 = euler_step_t(m, Qt, zmin, zmin, divdp_t,
-                                        divdp_proj_t, uv_t, dt2, 0,
-                                        pre_minmax=pre_minmax0,
-                                        next_dp=dp1_t)
-    mm1, _ = nb1 if nb1 is not None else (None, None)
-    # stage 1's DSS epilogue also emits the first biharmonic Laplacian
-    # for stage 2 (lap of Qdp2/dp2, the viscosity input)
-    Qt2, qmin, qmax, nb2 = euler_step_t(m, Qt1, qmin, qmax, divdp_t,
-                                        divdp_proj_t, uv_t, dt2, 1,
-                                        pre_minmax=mm1, next_dp=dp2_t,
-                                        next_lap=m.cfg.nu_q > 0)
-    mm2, lap2 = nb2 if nb2 is not None else (None, None)
-    # stage 3's DSS epilogue fuses qdp_time_avg (:645-662 u/3 + 2u'/3)
-    # — the returned field is already the time-averaged Qdp' — and, when
-    # next_step_dp is given, the NEXT tracer step's stage-0 bound prep
-    Qt3, qmin, qmax, nb3 = euler_step_t(m, Qt2, qmin, qmax, divdp_t,
-                                        divdp_proj_t, uv_t, dt2, 2,
-                                        pre_minmax=mm2, pre_lap=lap2,
-                                        avg_t=Qt, next_dp=next_step_dp)
-    mm3 = nb3[0] if nb3 is not None else None
-    return Qt3, divdp_proj_t, mm3
-
-
-def advect_rk2_t(m: Model, Qt, vn0, dt_q):
-    """T-layout Prim_Advec_Tracers_remap_rk2 (perf path; no piggyback
-    diagnostics).  Qt [E,16,qk]; vn0 [E,k,2,n,n] standard (it is small).
-    Returns (Qt', divdp_proj_t)."""
-    E = Qt.shape[0]
-    nk = m.cfg.nlev
-    divdp = so.divergence_sphere(vn0, m.deriv, m.Dinv, m.metdet,
-                                 m.rmetdet)
-    divdp_t = _tp(divdp, E, nk)
-    u_t = _tp(vn0[:, :, 0], E, nk)
-    v_t = _tp(vn0[:, :, 1], E, nk)
-    # divdp_proj = DSS-projected divdp (stage 0 piggyback in the reference;
-    # here done directly in T layout)
-    divdp_proj_t = m.tables.dss_scale_t(
-        divdp_t * m.spheremp.reshape(E, 16, 1), m.rspheremp.reshape(E, 16))
-    return advect_rk2_t_parts(m, Qt, (u_t, v_t), divdp_t, divdp_proj_t,
-                              dt_q)[:2]
-
-
-def vertical_remap_t(m: Model, Qt, divdp_proj_t, dt_remap):
-    """T-layout vertical remap: columns are (E,16) x (q,k) with k lane-minor
-    — the PPM kernel runs with no transposes at all."""
-    E, _, qk = Qt.shape
-    nq, nk = m.cfg.qsize, m.cfg.nlev
-    dp_star = m.dp0col[None, None, :] - dt_remap * divdp_proj_t  # [E,16,k]
-    ps_v = m.hyai[0] * P0 + dp_star.sum(axis=2)                  # [E,16]
-    dp_ref = ((m.hyai[1:] - m.hyai[:-1])[None, None, :] * P0
-              + (m.hybi[1:] - m.hybi[:-1])[None, None, :]
-              * ps_v[..., None])
-    # health channel: negative layer thickness (reference abort, :1323)
-    # OR the fast-path displacement window exceeded (ops/ppm.py
-    # ppm_fast_margin) — either < 0 aborts in the driver.  With
-    # ppm_search="general" the window guard is advisory (the unbounded
-    # search handles any deformation, prim_advection_mod.F90:159-173).
-    from ..ops.ppm import ppm_fast_margin, remap_q_ppm_general
-    general = m.cfg.ppm_search == "general"
-    health = dp_star.min() if general else jnp.minimum(
-        dp_star.min(), ppm_fast_margin(dp_star, dp_ref))
-    min_dp = m.tables.global_min(health)
-    if general:
-        Qcol = Qt.reshape(E, 16, nq, nk)
-        nc = next((c for c in (8, 4, 2) if E % c == 0), 1)
-        Qnew = jax.lax.map(
-            lambda a: remap_q_ppm_general(a[0], a[1], a[2],
-                                          alg=m.cfg.vert_remap_q_alg),
-            (Qcol.reshape(nc, E // nc, 16, nq, nk),
-             dp_star.reshape(nc, E // nc, 16, nk),
-             dp_ref.reshape(nc, E // nc, 16, nk))).reshape(E, 16, qk)
-        return Qnew, ps_v.reshape(E, 4, 4), min_dp
-    if m.cfg.use_pallas:
-        # VMEM-resident PPM kernel (~2 HBM passes)
-        from ..ops.pallas_ppm import remap_q_ppm_pallas_t
-        # eb=8 with the raised scoped-vmem cap (the ~35 [eb,16,qk]
-        # intermediates fit well under 100M); fewer grid steps = less
-        # per-block overhead than the old eb=2
-        Qnew_t = remap_q_ppm_pallas_t(Qt, dp_star, dp_ref,
-                                      alg=m.cfg.vert_remap_q_alg, eb=8)
-        return Qnew_t, ps_v.reshape(E, 4, 4), min_dp
-    Qcol = Qt.reshape(E, 16, nq, nk)
-    # chunk the element axis: the XLA PPM working set (parabola
-    # coefficients + shift-selected copies) is ~6x the field size —
-    # unchunked it OOMs the perf configs
-    nc = next((c for c in (8, 4, 2) if E % c == 0), 1)
-    if nc > 1:
-        ec = E // nc
-        Qr = Qcol.reshape(nc, ec, 16, nq, nk)
-        d1r = dp_star.reshape(nc, ec, 16, nk)
-        d2r = dp_ref.reshape(nc, ec, 16, nk)
-        Qnew = jax.lax.map(
-            lambda a: remap_q_ppm(a[0], a[1], a[2],
-                                  alg=m.cfg.vert_remap_q_alg),
-            (Qr, d1r, d2r)).reshape(E, 16, nq, nk)
-    else:
-        Qnew = remap_q_ppm(Qcol, dp_star, dp_ref,
-                           alg=m.cfg.vert_remap_q_alg)
-    return (Qnew.reshape(E, 16, qk), ps_v.reshape(E, 4, 4), min_dp)
 
 def advect_rk2(m: Model, Qdp, vn0, dt_q, eta_dot=None, omega=None):
     """Prim_Advec_Tracers_remap_rk2 (:579-640).
@@ -576,21 +289,14 @@ def vertical_remap(m: Model, Qdp, divdp_proj, dt_remap):
 # the remap-interval step (prim_run_subcycle)
 # ---------------------------------------------------------------------------
 
-def make_subcycle_fn(m: Model, diagnostics: bool = False,
-                     io_layout: str = "std"):
+def make_subcycle_fn(m: Model, diagnostics: bool = False):
     """Returns jittable fn(Qdp, nstep) -> (Qdp', ps_v, nstep', min_dp).
 
     One call advances rsplit tracer steps and performs one vertical remap
     (prim_driver_mod.F90:788-796).  nstep counts tracer steps.
-
-    io_layout="t" (pallas perf path only): state passes in and out in the
-    T layout [E, 16, qk] so consecutive subcycles chain with no relayout
-    copies (2 full-field transposes and their XLA buffers otherwise;
-    convert with model.core._tp/_tp_back at the boundaries).
     """
     cfg = m.cfg
-    # Python floats: they bake into the trace as constants either way, and
-    # the Pallas kernels need concrete scalars
+    # Python floats: they bake into the trace as constants
     dt = float(cfg.tstep)
     dt_q = float(cfg.dt_tracer)
     dt_remap = float(cfg.dt_remap)
@@ -609,60 +315,6 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
         if cfg.qsplit == 1:
             return None
         return ur_w[nstep % cfg.qsplit]
-
-    if cfg.use_pallas and cfg.limiter_option == 8 and not diagnostics:
-        # T-layout Pallas pipeline: one relayout in, one out per subcycle.
-        # Winds/divdp/divdp_proj come from the factored basis (built once,
-        # eagerly — a handful of broadcast FMAs per step instead of full
-        # trig re-evaluation; model/wind_basis.py).
-        from .wind_basis import build_wind_basis
-        wb = build_wind_basis(m)
-
-        def subcycle_t(Qt, nstep):
-            """The whole subcycle on T-layout state (no relayouts)."""
-            E = Qt.shape[0]
-            qk = cfg.qsize * cfg.nlev
-            # face mode: pad lanes to a 128 multiple once per subcycle so
-            # every kernel and the Pallas DSS stream at native tile width
-            qkp = -(-qk // 128) * 128
-            if getattr(m.tables, "mode", None) == "face" and qkp != qk:
-                Qt = jnp.pad(Qt, ((0, 0), (0, 0), (0, qkp - qk)))
-            divdp_proj_t = None
-            nk = cfg.nlev
-            dp0_t = jnp.broadcast_to(m.dp0col[None, None, :],
-                                     (E, 16, nk))
-            mm0 = None
-            for i in range(cfg.rsplit):
-                t_wind = jnp.maximum(nstep - 1, 0).astype(m.lon.dtype) * dt
-                (_, _, un0_t, vn0_t, divdp_t,
-                 divdp_proj_t) = wb.eval(t_wind)
-                w = stage_weight(nstep)
-                if w is not None:
-                    un0_t, vn0_t = un0_t * w, vn0_t * w
-                    divdp_t, divdp_proj_t = divdp_t * w, divdp_proj_t * w
-                # chain stage-0 bounds across steps: step i's stage-3
-                # epilogue emits the bounds of Qdp'/dp0, which IS step
-                # i+1's stage-0 prep (stage-0 dp is the static dp0)
-                nd = dp0_t if i < cfg.rsplit - 1 else None
-                Qt, divdp_proj_t, mm0 = advect_rk2_t_parts(
-                    m, Qt, (un0_t, vn0_t), divdp_t, divdp_proj_t, dt_q,
-                    pre_minmax0=mm0, next_step_dp=nd)
-                nstep = nstep + 1
-            Qt = Qt[:, :, :qk]
-            Qt, ps_v, min_dp = vertical_remap_t(m, Qt, divdp_proj_t,
-                                                dt_remap)
-            return Qt, ps_v, nstep, min_dp
-
-        if io_layout == "t":
-            return subcycle_t
-
-        def step_t(Qdp, nstep):
-            E = Qdp.shape[0]
-            qk = cfg.qsize * cfg.nlev
-            Qt, ps_v, nstep, min_dp = subcycle_t(_tp(Qdp, E, qk), nstep)
-            return _tp_back(Qt, Qdp.shape), ps_v, nstep, min_dp
-
-        return step_t
 
     def step(Qdp, nstep):
         divdp_proj = None

@@ -1,10 +1,10 @@
 // Native grid-topology table builder.
 //
-// TPU-native analog of the reference's native grid-initialization path
+// Analog of the reference's native grid-initialization path
 // (reference: src/share/cube_mod.F90:1432 CubeTopology — GridVertex/GridEdge
 // connectivity; src/share/dof_mod.F90:67 global_dof / :322 CreateUniqueIndex;
 // src/share/schedule_mod.F90:36 genEdgeSched put/get maps).  Instead of edge
-// buffers and communication schedules, the TPU design needs one set of
+// buffers and communication schedules, this design needs one set of
 // static tables: for every (element, GLL point) slot, the coincident partner
 // slots (DSS = masked gathers), the element neighbor list (limiter min/max),
 // and the unique-point owner map (history ncol / norms).  Building those

@@ -87,3 +87,16 @@ def unique_columns(grid, field_eqkij: np.ndarray, tracer: int) -> np.ndarray:
 def grade_tracer(test_case: str) -> int:
     """0-based index of the tracer the NCL scripts grade."""
     return 0 if test_case == "dcmip1-1" else 1
+
+
+def run_norms(res) -> ErrorNorms:
+    """Error norms of a model/driver.py run_simulation result: the graded
+    tracer of its test case, final vs initial."""
+    m = res.model
+    g = m.grid
+    tr = grade_tracer(m.cfg.test_case)
+    lat_col = g.lat.reshape(-1)[g.uniq_src]
+    zm = SCALE_HEIGHT * np.log(1.0 / np.asarray(m.etam, np.float64))
+    return dcmip_error_norms(unique_columns(g, res.q_init, tr),
+                             unique_columns(g, res.q_final, tr),
+                             lat_col, zm, ne=m.cfg.ne)

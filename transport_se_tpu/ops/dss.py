@@ -1,6 +1,6 @@
 """Direct Stiffness Summation (DSS) and neighbor min/max as gathers.
 
-TPU-native replacement for the reference's edge pack / MPI exchange / unpack
+Device replacement for the reference's edge pack / MPI exchange / unpack
 machinery (reference: edge_mod.F90:366 `edgeVpack`, :648 `edgeVunpack`,
 :965 `edgeVunpackMin/Max`, bndry_mod.F90:21 `bndry_exchangeV`,
 viscosity_mod.F90:748 `neighbor_minmax`).
@@ -34,9 +34,10 @@ class DssTables:
       "gather" (default): 3 masked partner gathers, summed in fixed partner
         order — bitwise identical to the sharded path (BFB-under-shard-count
         invariance, reference README:46-48).
-      "segsum": scatter-add by global point id then gather back — ~1.6x
-        faster on TPU but associates the sum differently (roundoff-level
-        difference; used by the perf configs).
+      "segsum": scatter-add by global point id then gather back —
+        associates the sum differently (roundoff-level difference).
+      "face": shifted-slice assembly on raster-ordered elements
+        (ops/dss_face.py; roundoff-level difference; the perf configs).
     """
     part_idx: jnp.ndarray    # [E*16, 3] int32
     part_mask: jnp.ndarray   # [E*16, 3] bool
@@ -93,60 +94,10 @@ class DssTables:
         contrib = jnp.where(self.part_mask[..., None], partners, 0)
         return (xf + contrib.sum(axis=1)).reshape(x_t.shape)
 
-    def dss_scale_t(self, x_t, rsp, avg=None):
-        """rsp * DSS(x_t) on T-layout fields; rsp [E, 16].  Face mode runs
-        the fused Pallas kernel (ops/pallas_dss.py).  avg: optional
-        previous-timestep field — fused qdp_time_avg epilogue,
-        out = (avg + 2*rsp*DSS(x_t))/3 (prim_advection_mod.F90:645-662)."""
-        if self.mode == "face":
-            from .pallas_dss import dss_face_pallas
-            return dss_face_pallas(x_t, self.face, rsp=rsp, avg=avg)
-        out = self.dss_sum_t(x_t) * rsp[:, :, None]
-        if avg is not None:
-            out = (avg + 2.0 * out) / 3.0
-        return out
-
-    def dss_scale_minmax_t(self, x_t, rsp, dp, nq, lap_arrays=None,
-                           avg=None):
-        """Fused rsp*DSS(x_t) plus next-stage limiter-bound prep:
-        -> (out, qmin, qmax, lap) with qmin/qmax [E, lanes] = min/max over
-        the 16 points of out/dp (dp [E,16,nlev] broadcast over tracers).
-        With lap_arrays, lap = laplace_sphere_wk(out/dp) from the same
-        kernel epilogue; None otherwise.  avg: fused qdp_time_avg applied
-        BEFORE the bound prep (the bounds then belong to the next tracer
-        step's stage 0, whose dp is the static dp0)."""
-        if self.mode == "face":
-            from .pallas_dss import dss_face_pallas
-            r = dss_face_pallas(x_t, self.face, rsp=rsp, dp=dp,
-                                lap_arrays=lap_arrays, avg=avg)
-            return r if len(r) == 4 else r + (None,)
-        out = self.dss_sum_t(x_t) * rsp[:, :, None]
-        if avg is not None:
-            out = (avg + 2.0 * out) / 3.0
-        qmn, qmx = self.minmax_prep(out[..., :nq * dp.shape[-1]], dp, nq)
-        return out, qmn, qmx, None
-
-    def minmax_prep(self, x_t, dp, nq):
-        """Per-element min/max over points of Q = x_t/dp -> ([E,B], [E,B]).
-        x_t [E,16,B] (B = nq*nlev, level minor); dp [E,16,nlev]."""
-        if self.mode == "face":
-            from .pallas_dss import minmax_prep_pallas
-            return minmax_prep_pallas(x_t, dp, nq)
-        E, nn, B = x_t.shape
-        q = x_t.reshape(E, nn, nq, dp.shape[-1]) / dp[:, :, None, :]
-        return (q.min(axis=1).reshape(E, B), q.max(axis=1).reshape(E, B))
-
     def neighbor_minmax(self, qmin, qmax):
         if self.mode == "face":
-            # one streaming Pallas pass (interpret on CPU); the XLA
-            # shifted-copy form (dss_face.neighbor_minmax_face) is kept
-            # as the sharded/banded building block and parity target
-            from .pallas_dss import neighbor_minmax_pallas
-            E = qmin.shape[0]
-            shp = qmin.shape
-            gmin, gmax = neighbor_minmax_pallas(
-                qmin.reshape(E, -1), qmax.reshape(E, -1), self.face)
-            return gmin.reshape(shp), gmax.reshape(shp)
+            from .dss_face import neighbor_minmax_face
+            return neighbor_minmax_face(qmin, qmax, self.face)
         return neighbor_minmax(qmin, qmax, self)
 
     def global_min(self, x):

@@ -4,8 +4,8 @@ The cubed sphere is 6 regular ne x ne element grids; with elements stored in
 face-major raster order (index = face*ne^2 + ey*ne + ex), every *within-face*
 edge contribution of the DSS (reference: edge_mod.F90:366 `edgeVpack`,
 :648 `edgeVunpack`) is a static shifted slice of the field — no gather, no
-scatter, pure streaming concats/adds the TPU runs near HBM bandwidth and XLA
-fuses with neighboring elementwise work.  Crossing the 12 cube seams needs
+scatter, pure streaming concats/adds that XLA fuses with neighboring
+elementwise work.  Crossing the 12 cube seams needs
 only a small gathered ghost strip per face side (ne x 4 point rows, pre-
 permuted for orientation — the analog of the reference's edge `reverse`
 flags, edge_mod.F90:78-95, derived from global point identity instead of
@@ -13,10 +13,8 @@ orientation bookkeeping).  Corner-point diagonal partners (1 row per element
 corner) come from a single [E,4]-row gather that uniformly covers in-face
 diagonals, seam diagonals, and the partnerless cube-vertex corners.
 
-Compared with scatter-add (segment-sum) assembly this is ~4x faster on TPU
-(scatter/gather of 10 KB rows runs ~4x above the bandwidth floor; shifted
-slices run at it).  Summation order differs from the partner-table path by
-roundoff only; BFB-critical configs keep mode="gather".
+Summation order differs from the partner-table path by roundoff only;
+BFB-critical configs keep mode="gather".
 
 Point-slot convention: slot = i*4 + j, i along ex (face x1), j along ey
 (face x2); see grid/cubesphere.py build_grid.
@@ -220,8 +218,7 @@ def neighbor_minmax_face(qmin, qmax, ft: FaceTables):
     ne = ft.ne
     E = qmin.shape[0]
     orig_shape = qmin.shape
-    # flatten trailing batch dims: one big lane axis keeps the TPU layout
-    # dense (a trailing (q, k) pair would tile-pad both axes)
+    # flatten trailing batch dims into one axis
     qmin = qmin.reshape(E, -1)
     qmax = qmax.reshape(E, -1)
     bshape = qmin.shape[1:]

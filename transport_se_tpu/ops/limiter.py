@@ -12,16 +12,19 @@ Guba, Taylor & St-Cyr, JCP 2014).  Semantics preserved exactly:
   `addmass`; if |addmass| <= tol*|mass| the loop exits *after the clip*;
   otherwise addmass is redistributed equally (weighted by c) over the
   non-saturated points (:1033-1081);
-* at most np*np-1 = 15 iterations; if unconverged the result is the final
+* at most np*np-1 = 15 iterations (or a smaller f32 cap, config.py
+  limiter_iter_cap); if unconverged the result is the final
   redistribution (no trailing clip), exactly like the Fortran loop.
 
 The batch formulation freezes converged rows with masks and runs a
 `lax.while_loop` until every row in the batch is converged (or 15
-iterations), which on TPU avoids paying for the worst case when the typical
-case converges in 1-2 iterations.
+iterations), which avoids paying for the worst case when the typical case
+converges in 1-2 iterations.
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +34,7 @@ MAX_ITER = 15  # np*np - 1
 
 
 def limiter_optim_iter_full(ptens, sphweights, minp, maxp, dpmass,
-                            chunks: int = 0):
+                            chunks: int = 0, max_iter: int = 0):
     """Apply the limiter to Q = ptens/dpmass with weights sphweights*dpmass.
 
     Args:
@@ -46,9 +49,11 @@ def limiter_optim_iter_full(ptens, sphweights, minp, maxp, dpmass,
                   per iteration — the dominant f64/CPU verification cost).
                   0/1 = single loop.  Results are identical either way
                   (per-row math is independent).
+      max_iter:   iteration cap (0 = MAX_ITER, the reference's np*np-1).
 
     Returns (ptens_out, minp_out, maxp_out).
     """
+    core = functools.partial(_limiter_core, max_iter=max_iter or MAX_ITER)
     batch = 1
     for s in ptens.shape[:-1]:
         batch *= s
@@ -58,14 +63,14 @@ def limiter_optim_iter_full(ptens, sphweights, minp, maxp, dpmass,
         r2 = lambda a: a.reshape(chunks, batch // chunks, n2)
         r1 = lambda a: a.reshape(chunks, batch // chunks)
         out, mn, mx = jax.lax.map(
-            lambda t: _limiter_core(*t),
+            lambda t: core(*t),
             (r2(ptens), r2(sphweights), r1(minp), r1(maxp), r2(dpmass)))
         return (out.reshape(ptens.shape), mn.reshape(bshape),
                 mx.reshape(bshape))
-    return _limiter_core(ptens, sphweights, minp, maxp, dpmass)
+    return core(ptens, sphweights, minp, maxp, dpmass)
 
 
-def _limiter_core(ptens, sphweights, minp, maxp, dpmass):
+def _limiter_core(ptens, sphweights, minp, maxp, dpmass, max_iter):
     c = sphweights * dpmass
     x = ptens / dpmass
     sumc = jnp.sum(c, axis=-1)
@@ -105,7 +110,7 @@ def _limiter_core(ptens, sphweights, minp, maxp, dpmass):
 
     def cond(state):
         it, _, done = state
-        return (it < MAX_ITER) & ~jnp.all(done)
+        return (it < max_iter) & ~jnp.all(done)
 
     done0 = ~valid  # degenerate rows keep their input
     _, x, _ = jax.lax.while_loop(cond, body, (0, x, done0))

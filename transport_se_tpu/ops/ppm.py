@@ -1,6 +1,6 @@
 """Monotone PPM vertical remap, fully vectorized over columns and tracers.
 
-TPU-native re-formulation of the reference column-serial PPM remap
+Vectorized re-formulation of the reference column-serial PPM remap
 (reference: src/share/prim_advection_mod.F90:98 `remap_Q_ppm`,
 :221 `compute_ppm_grids`, :267 `compute_ppm` [Colella & Woodward 1984
 monotone reconstruction], :349 `integrate_parabola`).
@@ -159,13 +159,12 @@ def _make_sel(b_up3, b_up2, b_up1, b_dn1, b_dn2):
 def remap_q_ppm(qdp, dp1, dp2, alg: int = 0):
     """Remap tracer mass qdp from layer grid dp1 to layer grid dp2.
 
-    TPU fast path: the Lagrangian grid deforms at most a couple of cells
+    Fast path: the Lagrangian grid deforms at most a couple of cells
     per remap interval (cf. the reference's near-search walking loop,
     prim_advection_mod.F90:153-156), so the enclosing source cell of each
     new interface is found by a bounded chain of boolean shift-selects
     (shifts -1..+3 covering interface displacements of -2..+2 cells)
-    instead of a gather, which on TPU is ~1000x cheaper than
-    take_along_axis along the minor axis.  `remap_q_ppm_general` keeps
+    instead of a gather (take_along_axis along the minor axis).  `remap_q_ppm_general` keeps
     the unbounded search path (used by tests as the oracle).
 
     Args:
@@ -239,7 +238,7 @@ def remap_q_ppm(qdp, dp1, dp2, alg: int = 0):
 def ppm_fast_margin(dp1, dp2):
     """Safety margin (Pa) of the bounded-shift fast path.
 
-    The fast path (and the Pallas kernel) finds each new interface within
+    The fast path finds each new interface within
     source cells k-1..k+3, i.e. interface displacements of -2..+2 cells;
     the reference's walking search is unbounded
     (prim_advection_mod.F90:159-173), so exceeding the window would

@@ -1,11 +1,13 @@
 """Spectral-element spherical operators as batched tensor contractions.
 
-TPU-native equivalents of the reference per-element dense 4x4 contractions
+Device equivalents of the reference per-element dense 4x4 contractions
 (reference: src/share/derivative_mod.F90 — `gradient_sphere` :1660,
 `divergence_sphere` :2364, `divergence_sphere_wk` :2027, `laplace_sphere_wk`
 :2418, `vorticity_sphere` :2250).  All functions operate on arrays with
 element/level/tracer batch dims leading and GLL dims (i, j) trailing; XLA
-batches the tiny matmuls over (E*k*q) rows, which is the MXU-friendly shape.
+batches the tiny contractions over (E*k*q) rows.  Every contraction asks
+for HIGHEST precision: a float32 einsum may otherwise run in TF32 on a
+GPU's tensor cores, which keeps about three decimal digits.
 
 Conventions (see grid/quadrature.py): deriv[l, i] = ell_i'(x_l), so
   d/dx S = einsum('li,...ij->...lj', deriv, S)
@@ -20,16 +22,19 @@ Metric arrays follow grid/cubesphere.py: D/Dinv are [E, i, j, 2, 2] with rows
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
 from ..constants import RREARTH
 
+_HIGHEST = lax.Precision.HIGHEST
+
 
 def _ddx(s, deriv):
-    return jnp.einsum('li,...ij->...lj', deriv, s)
+    return jnp.einsum('li,...ij->...lj', deriv, s, precision=_HIGHEST)
 
 
 def _ddy(s, deriv):
-    return jnp.einsum('...ij,lj->...il', s, deriv)
+    return jnp.einsum('...ij,lj->...il', s, deriv, precision=_HIGHEST)
 
 
 def _expand(metric_field, target_ndim):
@@ -92,8 +97,8 @@ def divergence_sphere_wk(v, deriv, Dinv, spheremp):
     """
     c1, c2 = _to_contra(v, Dinv, v.ndim - 3 + 2)
     sp = _expand(spheremp, c1.ndim)
-    t1 = jnp.einsum('jm,...jn->...mn', deriv, sp * c1)
-    t2 = jnp.einsum('...mj,jn->...mn', sp * c2, deriv)
+    t1 = jnp.einsum('jm,...jn->...mn', deriv, sp * c1, precision=_HIGHEST)
+    t2 = jnp.einsum('...mj,jn->...mn', sp * c2, deriv, precision=_HIGHEST)
     return -(t1 + t2) * RREARTH
 
 

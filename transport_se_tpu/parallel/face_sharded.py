@@ -1,9 +1,9 @@
 """Sharded face-shift DSS: the fast assembly, per shard, for any shard count.
 
-Round-2's face-shift DSS (ops/dss_face.py, ops/pallas_dss.py) only ran
-outside `shard_map`; the sharded pipeline fell back to partner-table
-gathers — a different, slower program than the single-chip one.  This
-module carries the shifted-slice assembly into the sharded path so there is
+The face-shift DSS (ops/dss_face.py) works on the whole cubed sphere;
+without this module the sharded pipeline would fall back to partner-table
+gathers — a different program than the single-device one.  This module
+carries the shifted-slice assembly into the sharded path so there is
 ONE production assembly at any shard count — the discipline of the
 reference, whose edge pack/exchange/unpack is the same code at every rank
 count (reference: edge_mod.F90:366/648 + bndry_mod.F90:21; cuda_mod.F90:
@@ -73,10 +73,6 @@ class ShardedFaceTables:
     pb_mask: jnp.ndarray
     diag_idx: jnp.ndarray     # [eloc, 4] int32 into ext flat slots
     diag_mask: jnp.ndarray    # [eloc, 4] bool
-    # static band-aligned metric (ops/pallas_band.py fused epilogues;
-    # zeros on rows outside the sphere — their outputs are sliced off)
-    band_rsp: jnp.ndarray = None   # [nr, ne, 16] rspheremp
-    band_met: jnp.ndarray = None   # [nr, ne, 5, 16] Dinv00/01/10/11+spheremp
     # static (python-int) band offset when identical on every shard
     # (row-aligned eloc) — enables static band/output slicing; None
     # when shards cut mid-row (offsets then differ per shard)
@@ -86,7 +82,7 @@ class ShardedFaceTables:
 def build_sharded_face_tables(grid, plan, ft) -> dict:
     """Build [S, ...] table stacks for the banded face DSS.
 
-    grid: cubesphere Grid in raster order; plan: ShardPlan (identity perm);
+    grid: cubesphere Grid in raster order; plan: ShardPlan;
     ft: global FaceTables (ops/dss_face.py).  Returns dict of numpy arrays
     plus the static dims, for sharded.py to thread through shard_map.
     """
@@ -94,9 +90,6 @@ def build_sharded_face_tables(grid, plan, ft) -> dict:
     E = grid.nelem
     S = plan.nshards
     eloc = plan.eloc
-    if not np.array_equal(plan.perm, np.arange(E)):
-        raise ValueError("face-sharded DSS requires identity element order "
-                         "(no overlap reordering)")
     if eloc < 2 * ne:
         raise ValueError(f"face-sharded DSS needs >= 2 rows per shard "
                          f"(eloc {eloc} < 2*ne {2 * ne})")
@@ -186,25 +179,6 @@ def build_sharded_face_tables(grid, plan, ft) -> dict:
                 if g_diag_mask[g0 + l, c]:
                     diag_idx[l, c], diag_mask[l, c] = sidx(g_diag[g0 + l, c])
 
-        # band-aligned static metric for the Pallas band kernel's fused
-        # scale/laplacian epilogues (same f64 sources the Model casts)
-        band_rsp = np.zeros((nr, ne, 16))
-        band_met = np.zeros((nr, ne, 5, 16))
-        rsp16 = np.asarray(grid.rspheremp).reshape(E, 16)
-        Dinv = np.asarray(grid.Dinv).reshape(E, 16, 2, 2)
-        sp16 = np.asarray(grid.spheremp).reshape(E, 16)
-        for r in range(nr):
-            gr = row0 + r
-            if not (0 <= gr < nrows_all):
-                continue
-            els = np.arange(gr * ne, gr * ne + ne)
-            band_rsp[r] = rsp16[els]
-            band_met[r, :, 0] = Dinv[els, :, 0, 0]
-            band_met[r, :, 1] = Dinv[els, :, 0, 1]
-            band_met[r, :, 2] = Dinv[els, :, 1, 0]
-            band_met[r, :, 3] = Dinv[els, :, 1, 1]
-            band_met[r, :, 4] = sp16[els]
-
         P = max(P, len(pa), len(pb))
         per_shard.append(dict(band_o=np.asarray([o], np.int32),
                               head_idx=head_idx, head_mask=head_mask,
@@ -213,15 +187,13 @@ def build_sharded_face_tables(grid, plan, ft) -> dict:
                               gmx_idx=gmx_idx, gmx_mask=gmx_mask,
                               ysame_up=ysame_up, ysame_dn=ysame_dn,
                               pa=pa, pb=pb,
-                              diag_idx=diag_idx, diag_mask=diag_mask,
-                              band_rsp=band_rsp, band_met=band_met))
+                              diag_idx=diag_idx, diag_mask=diag_mask))
 
     P = max(P, 1)
     out = {}
     for k in ("band_o", "head_idx", "head_mask", "tail_idx", "tail_mask",
               "gpx_idx", "gpx_mask", "gmx_idx", "gmx_mask",
-              "ysame_up", "ysame_dn", "diag_idx", "diag_mask",
-              "band_rsp", "band_met"):
+              "ysame_up", "ysame_dn", "diag_idx", "diag_mask"):
         out["f_" + k] = np.stack([d[k] for d in per_shard])
     for name, key in (("pa", "pa"), ("pb", "pb")):
         pos = np.zeros((S, P), np.int32)
@@ -238,7 +210,7 @@ def build_sharded_face_tables(grid, plan, ft) -> dict:
     # uniform row-alignment offset (eloc % ne == 0, e.g. S=1 or the
     # NE120/S=8 production split): every shard's band offset is the same
     # static value, so the band/output slicing can be static python
-    # slices instead of dynamic_slice copies (ops/pallas_band.py)
+    # slices instead of dynamic_slice copies
     o_all = {int(d["band_o"][0]) for d in per_shard}
     out["_dims"] = dict(ne=ne, eloc=eloc, nr=nr, npatch=P,
                         band_o_static=(o_all.pop() if len(o_all) == 1
@@ -261,8 +233,7 @@ def tables_from_stack(stack_slices: dict, dims: dict) -> ShardedFaceTables:
         ysame_dn=g("ysame_dn"), pa_pos=g("pa_pos"), pa_idx=g("pa_idx"),
         pa_mask=g("pa_mask"), pb_pos=g("pb_pos"), pb_idx=g("pb_idx"),
         pb_mask=g("pb_mask"), diag_idx=g("diag_idx"),
-        diag_mask=g("diag_mask"), band_rsp=g("band_rsp"),
-        band_met=g("band_met"),
+        diag_mask=g("diag_mask"),
         band_o_static=dims.get("band_o_static"))
 
 

@@ -1,6 +1,6 @@
 """Multi-chip domain decomposition: halo-exchange plan + sharded DSS.
 
-TPU-native replacement for the reference's MPI communication stack
+Device replacement for the reference's MPI communication stack
 (reference: metagraph_mod.F90:228 `initMetaGraph`, schedule_mod.F90:36
 `genEdgeSched`, bndry_mod.F90:21 `bndry_exchangeV`).  The element axis is
 sharded over the device mesh in canonical SFC order (contiguous chunks, the
@@ -14,7 +14,7 @@ Key structural properties carried over from the reference (SURVEY.md §5):
   (the FindBufferSlot discipline) — here one `lax.ppermute` payload;
 * exchanges are scheduled in rounds (a greedy edge coloring of the shard
   traffic graph); each round is a partial permutation, so every round is a
-  single collective-permute over ICI;
+  single collective-permute;
 * the combine operation (sum for DSS, min/max for limiter bounds) is applied
   locally against tables whose *partner order is identical to the
   single-device tables*, so results are bitwise independent of the shard
@@ -56,57 +56,18 @@ class ShardPlan:
     part_idx: np.ndarray      # [S, eloc*16, 3] int32 into (eloc+nhalo)*16
     part_mask: np.ndarray     # [S, eloc*16, 3] bool
     nbr: np.ndarray           # [S, eloc, 9] int32 into eloc+nhalo
-    # boundary-first ordering (overlap mode; identity otherwise)
-    perm: np.ndarray = None   # [E] int64: new global order -> original id
-    nbound: int = 0           # static boundary-group size per shard
     # halo membership (global element ids per halo slot; face-DSS builder)
     halo_gid: np.ndarray = None   # [S, nhalo] int64 (-1 = unused slot)
-    # boundary GROUP without reordering (face+overlap composition): local
-    # indices of the elements any peer needs, and the send tables remapped
-    # to positions within that group — the producer computes the group in
-    # a small duplicate kernel and the halo permutes depend only on it
-    bidx: np.ndarray = None       # [S, NB] int32 local indices (padded 0)
-    bmask: np.ndarray = None      # [S, NB] bool
-    send_elem_b: np.ndarray = None  # [S, R, C] int32 into the group
 
 
-def build_shard_plan(grid, nshards: int, overlap: bool = False) -> ShardPlan:
-    """overlap=True reorders each shard's local elements boundary-first
-    (elements whose data any other shard needs), exposing a static split
-    point `nbound`: the model can then compute the boundary elements,
-    START the halo permutes, and compute the interior while the payload
-    is in flight — the cuda_mod.F90:932-1009 comm/compute overlap, XLA
-    style (the scheduler hoists the collective between the two kernel
-    calls).  `perm` maps new global order -> original element ids."""
+def build_shard_plan(grid, nshards: int) -> ShardPlan:
+    """Contiguous chunks of the element order, one per shard."""
     E = grid.nelem
     if E % nshards != 0:
         raise ValueError(f"nelem {E} not divisible by {nshards} shards")
     eloc = E // nshards
     shard_of = np.arange(E) // eloc
-
-    if overlap:
-        sent: list[set] = [set() for _ in range(nshards)]
-        for e in range(E):
-            s = shard_of[e]
-            for n in grid.nbr[e]:
-                if shard_of[n] != s:
-                    sent[s].add(e)
-        perm = np.empty(E, dtype=np.int64)
-        local_of = np.empty(E, dtype=np.int64)
-        nbound = 0
-        for s in range(nshards):
-            base = s * eloc
-            mine = list(range(base, base + eloc))
-            b = sorted(e for e in mine if e in sent[s])
-            i = sorted(e for e in mine if e not in sent[s])
-            nbound = max(nbound, len(b))
-            for pos, e in enumerate(b + i):
-                perm[base + pos] = e
-                local_of[e] = pos
-    else:
-        perm = np.arange(E, dtype=np.int64)
-        local_of = np.arange(E) % eloc
-        nbound = 0
+    local_of = np.arange(E) % eloc
 
     # halo sets per shard, ordered by global element id (determinism)
     halos = []
@@ -192,36 +153,13 @@ def build_shard_plan(grid, nshards: int, overlap: bool = False) -> ShardPlan:
         for i, e in enumerate(halos[s]):
             halo_gid[s, i] = e
 
-    # boundary GROUP tables (face+overlap composition, raster order kept):
-    # the union of each shard's send sets, as local indices, plus the send
-    # tables remapped to group positions.  Built for every plan (cheap);
-    # only the face+overlap pipeline consumes them.
-    bsets = [sorted({int(send_elem[s, r, c])
-                     for r in range(nrounds) for c in range(maxsend)
-                     if send_mask[s, r, c]}) for s in range(nshards)]
-    NB = max((len(b) for b in bsets), default=0)
-    NB = max(NB, 1)
-    bidx = np.zeros((nshards, NB), np.int32)
-    bmask = np.zeros((nshards, NB), bool)
-    send_elem_b = np.zeros_like(send_elem)
-    for s in range(nshards):
-        pos = {}
-        for i, e in enumerate(bsets[s]):
-            bidx[s, i] = e
-            bmask[s, i] = True
-            pos[e] = i
-        for r in range(nrounds):
-            for c in range(maxsend):
-                if send_mask[s, r, c]:
-                    send_elem_b[s, r, c] = pos[int(send_elem[s, r, c])]
     return ShardPlan(nshards=nshards, eloc=eloc, nhalo=nhalo,
                      nrounds=nrounds, maxsend=maxsend,
                      send_peer=send_peer, send_elem=send_elem,
                      send_mask=send_mask, recv_slot=recv_slot,
                      recv_mask=recv_mask, perms=tuple(perms),
                      part_idx=part_idx, part_mask=part_mask, nbr=nbr,
-                     perm=perm, nbound=nbound, halo_gid=halo_gid,
-                     bidx=bidx, bmask=bmask, send_elem_b=send_elem_b)
+                     halo_gid=halo_gid)
 
 
 # ---------------------------------------------------------------------------
@@ -243,32 +181,17 @@ class ShardedDssTables:
     part_idx: jnp.ndarray     # [eloc*16, 3]
     part_mask: jnp.ndarray    # [eloc*16, 3]
     nbr: jnp.ndarray          # [eloc, 9]
-    nbound: int = 0           # boundary-group size (overlap ordering)
     face: object = None       # ShardedFaceTables: banded face-shift
                               # assembly (parallel/face_sharded.py) in
                               # place of the partner-table gathers
-    bidx: jnp.ndarray = None        # [NB] boundary-group local indices
-    bmask: jnp.ndarray = None       # [NB]
-    send_elem_b: jnp.ndarray = None  # [R, C] send indices into the group
-    overlap_face: bool = False      # face+overlap composition on: the
-                                    # core duplicates the boundary-group
-                                    # producer and passes it as xb
-    use_pallas_band: bool = False   # route dss_scale_t/dss_scale_minmax_t
-                                    # through the Pallas band kernel
-                                    # (ops/pallas_band.py) with fused
-                                    # scale/minmax/lap epilogues
 
     # -- halo exchange of whole-element slabs ------------------------------
-    def _halo_rounds(self, src, send_elem=None):
-        """Permute rounds gathering send slabs from `src` (the full local
-        array, the boundary group when overlap ordering is on, or the
-        duplicate boundary-group array with `send_elem=self.send_elem_b`
-        on the face+overlap path)."""
-        send_elem = self.send_elem if send_elem is None else send_elem
-        R, C = send_elem.shape
+    def _halo_rounds(self, src):
+        """Permute rounds gathering the send slabs of `src` [eloc, ...]."""
+        R, C = self.send_elem.shape
         halo = jnp.zeros((self.nhalo,) + src.shape[1:], src.dtype)
         for r in range(R):
-            payload = src[send_elem[r]]                       # [C, B...]
+            payload = src[self.send_elem[r]]                  # [C, B...]
             mask = self.send_mask[r].reshape(
                 (C,) + (1,) * (src.ndim - 1))
             payload = jnp.where(mask, payload, 0)
@@ -282,7 +205,8 @@ class ShardedDssTables:
         return halo
 
     def halo_extend(self, x):
-        """x: [eloc, B..., n, n] -> [eloc+nhalo, B..., n, n] with halo."""
+        """x: [eloc, ...] -> [eloc+nhalo, ...]: the local elements, then
+        the halo elements (fields or per-element values)."""
         return jnp.concatenate([x, self._halo_rounds(x)], axis=0)
 
     # -- same combine semantics as ops/dss.py ------------------------------
@@ -309,34 +233,14 @@ class ShardedDssTables:
         out = jnp.moveaxis(out, 1, 0)
         return out.reshape(x.shape)
 
-    def dss_sum_t(self, x_t, xb=None):
-        """DSS on T-layout fields [eloc, 16, B] (point axis second) —
-        lets the Pallas/T pipeline (model/core.py euler_step_t) run
-        unchanged inside shard_map.
-
-        xb: optional [NB, 16, B] duplicate of x_t[bidx] (face+overlap
-        composition, cuda_mod.F90:932-1009): the halo permutes then
-        depend only on the small boundary-group kernel, so XLA overlaps
-        them with the full-field producer.  Values must be bitwise equal
-        to x_t[bidx] (the fused kernel's per-element results are
-        grouping-invariant), so the assembly is unchanged."""
-        if xb is not None:
-            halo = self._halo_rounds(xb, send_elem=self.send_elem_b)
-        else:
-            halo = self._halo_rounds(x_t)
+    def dss_sum_t(self, x_t):
+        """DSS on T-layout fields [eloc, 16, B] (point axis second)."""
+        halo = self._halo_rounds(x_t)
         if self.face is not None:
             from .face_sharded import dss_sum_t_face_band
             ext = jnp.concatenate([x_t, halo], axis=0)
             return dss_sum_t_face_band(x_t, ext, self.face)
         return self._dss_from(x_t, halo)
-
-    def dss_sum_t_split(self, xb, xi):
-        """Overlap-friendly DSS: the halo permutes depend ONLY on the
-        boundary group xb [nbound,16,B], so XLA can schedule them while
-        the producer of the interior group xi is still running (the
-        cuda_mod.F90:932-1009 boundary/interior overlap)."""
-        halo = self._halo_rounds(xb)
-        return self._dss_from(jnp.concatenate([xb, xi], axis=0), halo)
 
     def _dss_from(self, x_t, halo):
         xe = jnp.concatenate([x_t, halo], axis=0)             # [eloc+h,16,B]
@@ -348,92 +252,12 @@ class ShardedDssTables:
         contrib = jnp.where(self.part_mask[..., None], partners, 0)
         return (own + contrib.sum(axis=1)).reshape(x_t.shape)
 
-    def _ext(self, x_t, xb):
-        halo = (self._halo_rounds(xb, send_elem=self.send_elem_b)
-                if xb is not None else self._halo_rounds(x_t))
-        return jnp.concatenate([x_t, halo], axis=0)
-
-    def dss_scale_t(self, x_t, rsp, avg=None, xb=None):
-        """rsp * DSS(x_t); same interface as DssTables.dss_scale_t.
-        avg: optional fused qdp_time_avg, out = (avg + 2*scaled)/3."""
-        if self.use_pallas_band:
-            from ..ops.pallas_band import dss_band_pallas
-            out = dss_band_pallas(x_t, self._ext(x_t, xb), self.face,
-                                  rsp_band=self.face.band_rsp)
-        else:
-            out = self.dss_sum_t(x_t, xb=xb) * rsp[:, :, None]
-        if avg is not None:
-            out = (avg + 2.0 * out) / 3.0
-        return out
-
-    def dss_scale_minmax_t(self, x_t, rsp, dp, nq, lap_arrays=None,
-                           avg=None, xb=None):
-        """DSS+scale (+ qdp_time_avg) + next-stage bound prep (+ first
-        biharmonic Laplacian).  On the Pallas band path (use_pallas_band)
-        the scale/minmax/lap epilogues run fused in the band kernel —
-        the single-chip fused program per shard; with avg the bounds
-        belong to the post-average field, so the kernel does DSS+scale
-        and the average + bound prep follow on the local slice (the
-        bound prep is still the Pallas minmax kernel)."""
-        if self.use_pallas_band:
-            from ..ops.pallas_band import dss_band_pallas
-            ext = self._ext(x_t, xb)
-            if avg is None:
-                r = dss_band_pallas(
-                    x_t, ext, self.face, rsp_band=self.face.band_rsp,
-                    dp=dp, nq=nq,
-                    met_band=(self.face.band_met if lap_arrays is not None
-                              else None),
-                    deriv=(lap_arrays["deriv"] if lap_arrays is not None
-                           else None))
-                out, qmn, qmx = r[0], r[1], r[2]
-                return out, qmn, qmx, (r[3] if lap_arrays is not None
-                                       else None)
-            out = dss_band_pallas(x_t, ext, self.face,
-                                  rsp_band=self.face.band_rsp)
-            out = (avg + 2.0 * out) / 3.0
-            qmn, qmx = self.minmax_prep(out[..., :nq * dp.shape[-1]],
-                                        dp, nq)
-            return out, qmn, qmx, None
-        out = self.dss_sum_t(x_t, xb=xb) * rsp[:, :, None]
-        if avg is not None:
-            out = (avg + 2.0 * out) / 3.0
-        qmn, qmx = self.minmax_prep(out[..., :nq * dp.shape[-1]], dp, nq)
-        return out, qmn, qmx, None
-
-    def minmax_prep(self, x_t, dp, nq):
-        """Per-element min/max over points of Q = x_t/dp (per shard).
-        Element-local, so the single-device Pallas kernel runs unchanged
-        inside shard_map on the face path (ops/dss.py dispatches the
-        same way)."""
-        if self.face is not None:
-            from ..ops.pallas_dss import minmax_prep_pallas
-            return minmax_prep_pallas(x_t, dp, nq)
-        E, nn, B = x_t.shape
-        q = x_t.reshape(E, nn, nq, dp.shape[-1]) / dp[:, :, None, :]
-        return (q.min(axis=1).reshape(E, B), q.max(axis=1).reshape(E, B))
-
     def global_min(self, x):
         return jax.lax.pmin(x.min(), self.axis_name)
 
     def neighbor_minmax(self, qmin, qmax):
-        qmin_e = self.halo_extend_flat(qmin)
-        qmax_e = self.halo_extend_flat(qmax)
+        qmin_e = self.halo_extend(qmin)
+        qmax_e = self.halo_extend(qmax)
         gmin = jnp.min(qmin_e[self.nbr], axis=1)
         gmax = jnp.max(qmax_e[self.nbr], axis=1)
         return gmin, gmax
-
-    def halo_extend_flat(self, x):
-        """Like halo_extend but for [eloc, B...] per-element values."""
-        R, C = self.send_elem.shape
-        halo = jnp.zeros((self.nhalo,) + x.shape[1:], x.dtype)
-        for r in range(R):
-            payload = x[self.send_elem[r]]
-            mask = self.send_mask[r].reshape((C,) + (1,) * (x.ndim - 1))
-            payload = jnp.where(mask, payload, 0)
-            recv = jax.lax.ppermute(payload, self.axis_name,
-                                    perm=list(self.perms[r]))
-            rmask = self.recv_mask[r].reshape(mask.shape)
-            halo = halo.at[self.recv_slot[r]].add(
-                jnp.where(rmask, recv, 0))
-        return jnp.concatenate([x, halo], axis=0)

@@ -1,11 +1,11 @@
 """Multi-host (multi-process) runtime: distributed init + global arrays.
 
-TPU-native replacement for the reference's MPI process runtime
+Device replacement for the reference's MPI process runtime
 (reference: parallel_mod.F90:100 `initmp` MPI_Init/rank/size; restart
 gather restart_io_mod.F90:524).  One JAX process per host; the global
 device mesh spans all processes and the sharded subcycle
-(parallel/sharded.py) runs unchanged over it — shard_map collectives ride
-ICI within a host and DCN across hosts, scheduled by XLA.
+(parallel/sharded.py) runs unchanged over it — shard_map collectives are
+scheduled by XLA (NCCL on GPUs).
 
 Process-count invariance: the shard plan depends only on the shard count
 (= total devices), not on how shards map to processes, and every
@@ -14,9 +14,9 @@ across process counts for a fixed mesh size (extends the reference's
 BFB-under-task-count property, README:46-48; tested in
 tests/test_multihost.py via real 2-process gloo runs).
 
-Off-TPU, point JAX at the CPU backend *via jax.config* (the platform env
-var is not reliably honored): jax.config.update("jax_platforms", "cpu")
-and jax.config.update("jax_num_cpu_devices", N) before init().
+On CPUs, point JAX at the CPU backend with
+jax.config.update("jax_platforms", "cpu") and
+jax.config.update("jax_num_cpu_devices", N) before init().
 """
 
 from __future__ import annotations
@@ -29,9 +29,9 @@ def init(coordinator_address: str | None = None,
          process_id: int | None = None) -> None:
     """Initialize the distributed runtime (jax.distributed).
 
-    With no arguments, cluster-environment autodetection applies (TPU pod
-    slices configure themselves).  Call before any other JAX API touches
-    devices.  The reference analog is initmp (parallel_mod.F90:100).
+    With no arguments, cluster-environment autodetection applies (a GPU
+    machine with no cluster manager needs the three arguments).  Call
+    before any other JAX API touches devices.  The reference analog is initmp (parallel_mod.F90:100).
     """
     import jax
     kwargs = {}
@@ -61,9 +61,8 @@ def make_global_sharded(host_array: np.ndarray, sharding):
                                         lambda idx: arr[idx])
 
 
-def gather_canonical(x, inv_perm=None) -> np.ndarray:
-    """Gather a sharded array to a full host copy on every process, in
-    canonical element order (undoing any overlap permutation).
+def gather_canonical(x) -> np.ndarray:
+    """Gather a sharded array to a full host copy on every process.
 
     The multi-host analog of the restart/history host gather
     (restart_io_mod.F90:524 WriteRestart's collective write).
@@ -74,13 +73,10 @@ def gather_canonical(x, inv_perm=None) -> np.ndarray:
         full = np.asarray(x)
     else:
         full = np.asarray(multihost_utils.process_allgather(x, tiled=True))
-    if inv_perm is not None:
-        full = full[np.asarray(inv_perm)]
     return full
 
 
 def shard_qdp_multihost(runner, Qdp_host: np.ndarray):
-    """Multi-process version of ShardedRunner.shard_qdp: apply the plan's
-    element permutation and scatter to the global mesh."""
-    arr = np.asarray(Qdp_host)[runner.plan.perm]
-    return make_global_sharded(arr, runner.qdp_sharding)
+    """Multi-process version of ShardedRunner.shard_qdp: scatter a host
+    copy to the global mesh."""
+    return make_global_sharded(np.asarray(Qdp_host), runner.qdp_sharding)

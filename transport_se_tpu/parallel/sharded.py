@@ -5,7 +5,7 @@ The element axis is sharded in canonical SFC order over a 1-D mesh
 COLUMN_OPENMP / tracer-dimension parallelism collapse into XLA batching —
 SURVEY.md §2.5).  Inside shard_map the model core runs unchanged against
 per-shard metric slices and a ShardedDssTables whose halo exchanges are
-`lax.ppermute` rounds over ICI (parallel/halo.py).
+`lax.ppermute` rounds (parallel/halo.py), which XLA hands to NCCL on GPUs.
 
 This replaces the reference's MPI rank decomposition (one rank = one shard;
 prim_main.F90 + bndry_mod.F90); results are invariant under the shard count
@@ -16,14 +16,13 @@ tests/test_sharded.py.
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..model.core import Model, _tp, _tp_back, make_subcycle_fn
+from ..model.core import Model, make_subcycle_fn
 from .halo import ShardPlan, ShardedDssTables, build_shard_plan
 
 AXIS = "e"
@@ -36,90 +35,24 @@ def make_mesh(devices=None) -> Mesh:
 
 @dataclasses.dataclass(frozen=True)
 class ShardedRunner:
-    """Holds the mesh, plan, and the jitted sharded subcycle step.
-
-    In overlap mode (use_pallas configs) the element axis is reordered
-    boundary-first per shard; `shard_qdp` applies the permutation and
-    `to_model_order` undoes it on any element-indexed result."""
+    """Holds the mesh, plan, and the jitted sharded subcycle step."""
     model: Model
     mesh: Mesh
     plan: ShardPlan
     step: object          # fn(Qdp, nstep) -> (Qdp, ps_v, nstep, min_dp)
     qdp_sharding: object
-    inv_perm: np.ndarray
-    shard_fn: object = None
-    io_layout: str = "std"
 
     def shard_qdp(self, Qdp):
-        """Std-layout model-order Qdp [E, q, k, 4, 4] -> the sharded
-        step's input state.
-
-        For the Pallas pipeline the sharded state lives in the T layout
-        [E, 16, q*k] end to end (io_layout='t'), exactly like the
-        single-chip perf path: a std-layout [.., 4, 4]-minor array at a
-        jit boundary forces TPU tile padding on the (4, 4) dims — a 32x
-        HBM blowup (27.9 GB at NE30/35tr, found the first time
-        scripts/bench_sharded_chip.py ran on real hardware).  The
-        permutation and relayout run inside one jit with sharded output
-        so no padded intermediate ever materializes.
-        """
-        if self.shard_fn is not None:
-            return self.shard_fn(Qdp)
-        return jax.device_put(Qdp[jnp.asarray(self.plan.perm)],
-                              self.qdp_sharding)
-
-    def to_model_order(self, x):
-        """Undo the shard permutation (and the T relayout for Qdp-shaped
-        io_layout='t' arrays) on an element-indexed result."""
-        x = np.asarray(x)
-        cfg = self.model.cfg
-        if (self.io_layout == "t" and x.ndim == 3 and x.shape[1] == 16
-                and x.shape[2] >= cfg.qsize * cfg.nlev):
-            x = np.moveaxis(x[:, :, :cfg.qsize * cfg.nlev], 1, -1) \
-                .reshape(x.shape[0], cfg.qsize, cfg.nlev, 4, 4)
-        return x[self.inv_perm]
+        """Qdp [E, q, k, 4, 4] -> the sharded step's input state."""
+        return jax.device_put(Qdp, self.qdp_sharding)
 
 
 def make_sharded_subcycle(m: Model, mesh: Mesh,
-                          diagnostics: bool = False,
-                          overlap: bool | None = None) -> ShardedRunner:
-    """overlap: force the boundary-first comm/compute overlap ordering on
-    or off (None = auto: on for the gather-DSS Pallas pipeline).  Used by
-    the overlap A/B benchmark (scripts/bench_scaling.py)."""
+                          diagnostics: bool = False) -> ShardedRunner:
     S = mesh.devices.size
-    # the banded face DSS requires raster chunk order, so its overlap
-    # form keeps the identity ordering and instead duplicates the
-    # boundary-group producer (halo.py ShardedDssTables.dss_sum_t xb);
-    # the gather path overlaps via boundary-first element reordering
+    plan = build_shard_plan(m.grid, S)
     use_face = (m.cfg.dss_mode == "face"
                 and getattr(m.tables, "face", None) is not None)
-    overlap_auto = overlap is None
-    if overlap is None:
-        overlap = (m.cfg.use_pallas and m.cfg.limiter_option == 8
-                   and not diagnostics)
-    overlap_face = bool(overlap and use_face)
-    # the Pallas pipeline's sharded state stays in the T layout end to
-    # end (see ShardedRunner.shard_qdp) — same condition that selects
-    # the T pipeline inside make_subcycle_fn
-    io_layout = ("t" if (m.cfg.use_pallas and m.cfg.limiter_option == 8
-                         and not diagnostics) else "std")
-    plan = build_shard_plan(m.grid, S, overlap=overlap and not use_face)
-    if overlap_face and overlap_auto:
-        # the duplicate boundary-group producer costs extra kernel work
-        # to let the halo permutes overlap the full-field kernel.
-        # Measured on the real chip (artifacts/dup_cost_r05.txt, NE30
-        # perf kernel): the duplicate costs +9% of the full kernel at a
-        # 6% group (the NE120/S=8 production fraction), +29% at 23%,
-        # +67% at 50% — the r4 threshold of 0.5 allowed duplicates that
-        # no single halo round-trip could pay for.  Auto mode enables
-        # the composition below 25% (duplicate <= ~3 ms vs a ~2-6 ms
-        # hidden halo round); overlap=True forces it regardless.
-        frac = plan.bmask.sum(axis=1).max() / plan.eloc
-        overlap_face = bool(frac <= 0.25)
-    perm = plan.perm
-    inv_perm = np.empty_like(perm)
-    inv_perm[perm] = np.arange(perm.size)
-
     table_arrays = dict(
         send_elem=jnp.asarray(plan.send_elem),
         send_mask=jnp.asarray(plan.send_mask),
@@ -129,10 +62,6 @@ def make_sharded_subcycle(m: Model, mesh: Mesh,
         part_mask=jnp.asarray(plan.part_mask),
         nbr=jnp.asarray(plan.nbr),
     )
-    if overlap_face:
-        table_arrays.update(bidx=jnp.asarray(plan.bidx),
-                            bmask=jnp.asarray(plan.bmask),
-                            send_elem_b=jnp.asarray(plan.send_elem_b))
     face_dims = None
     if use_face:
         from .face_sharded import build_sharded_face_tables
@@ -142,7 +71,6 @@ def make_sharded_subcycle(m: Model, mesh: Mesh,
     elem_arrays = dict(lon=m.lon, lat=m.lat, D=m.D, Dinv=m.Dinv,
                        metdet=m.metdet, rmetdet=m.rmetdet,
                        spheremp=m.spheremp, rspheremp=m.rspheremp)
-    elem_arrays = {k: v[perm] for k, v in elem_arrays.items()}
 
     tab_keys = list(table_arrays)
     el_keys = list(elem_arrays)
@@ -157,15 +85,12 @@ def make_sharded_subcycle(m: Model, mesh: Mesh,
                 face_dims)
         tables = ShardedDssTables(
             axis_name=AXIS, eloc=plan.eloc, nhalo=plan.nhalo,
-            perms=plan.perms, nbound=plan.nbound, face=face,
-            overlap_face=overlap_face,
-            use_pallas_band=bool(use_face and m.cfg.use_pallas),
+            perms=plan.perms, face=face,
             **{k: tabs[k][0] for k in tab_keys
                if not k.startswith("f_")})
         ml = dataclasses.replace(m, tables=tables,
                                  **{k: els[k] for k in el_keys})
-        step = make_subcycle_fn(ml, diagnostics=diagnostics,
-                                io_layout=io_layout)
+        step = make_subcycle_fn(ml, diagnostics=diagnostics)
         Qdp, ps_v, nstep, min_dp = step(Qdp, nstep)
         min_dp = jax.lax.pmin(min_dp, AXIS)
         return Qdp, ps_v, nstep, min_dp
@@ -185,15 +110,5 @@ def make_sharded_subcycle(m: Model, mesh: Mesh,
     def step(Qdp, nstep):
         return smapped(Qdp, nstep, table_arrays, elem_arrays)
 
-    qdp_sharding = NamedSharding(mesh, P(AXIS))
-    permj = jnp.asarray(perm)
-    E = m.grid.nelem
-    qk = m.cfg.qsize * m.cfg.nlev
-    if io_layout == "t":
-        shard_fn = jax.jit(lambda x: _tp(x[permj], E, qk),
-                           out_shardings=qdp_sharding)
-    else:
-        shard_fn = jax.jit(lambda x: x[permj], out_shardings=qdp_sharding)
     return ShardedRunner(model=m, mesh=mesh, plan=plan, step=step,
-                         qdp_sharding=qdp_sharding, inv_perm=inv_perm,
-                         shard_fn=shard_fn, io_layout=io_layout)
+                         qdp_sharding=NamedSharding(mesh, P(AXIS)))

@@ -6,7 +6,7 @@ regions with call counts and wall totals, printable as a HommeTime-style
 table.  Device work is asynchronous under JAX, so regions that must measure
 device time should call `jax.block_until_ready` on their outputs or use
 `timers.time(..., sync=x)`.  For kernel-level profiles use
-`jax.profiler.trace` (the XLA trace is the perf ground truth on TPU).
+`jax.profiler.trace` (the device trace is the perf ground truth).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Reproducible global sums — the reference repro_sum, TPU-native.
+"""Reproducible global sums — the reference repro_sum, on device.
 
 The reference computes diagnostic global integrals with fixed-point
 integer accumulation so the result is bit-for-bit identical across MPI
